@@ -1,0 +1,141 @@
+"""Serving entry point: the paper's system end-to-end, on the GPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet llama2-7b,llama2-13b \
+        --queries 24 --zeta 0.5
+
+Port of `repro.launch.serve`:
+
+1. Characterize each hosted model by REAL execution (wall-clock metering,
+   KV cache disabled — the paper's measurement mode).
+2. Fit the per-model e_K / r_K workload models (Eq. 6/7).
+3. Route an Alpaca-like workload with the offline scheduler at the given
+   zeta and serve every batch through the real engines (KV cache ON — the
+   production path, whose decode attention is kernel B1), reporting
+   measured energy/runtime per model.
+
+Weights are random, drawn on the device from a seeded torch.Generator in
+the config's dtype.  Runs on CUDA unless `device="cpu"` is passed.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import TABLE1, get_config
+from repro_torch.core.characterize import (
+    CampaignSettings,
+    fit_profile_from_trials,
+    run_campaign,
+)
+from repro_torch.data import alpaca_like_workload, token_batches
+from repro_torch.data.workloads import WorkloadSpec
+from repro_torch.energy.meter import WallClockMeter
+from repro_torch.models import get_api
+from repro_torch.serving import EnergyAwareRouter, InferenceEngine
+from repro_torch.serving.requests import Request
+
+# the workload `serve` routes: Alpaca-like lengths, cut to a short run
+SERVE_WORKLOAD = dict(max_in=48, max_out=32, in_log_mean=2.8, out_log_mean=2.5)
+SERVE_BUCKET = 16
+
+
+def build_engine(arch: str, *, kv_cache: bool, seed: int = 0,
+                 device: str | torch.device = "cuda") -> InferenceEngine:
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    return InferenceEngine(cfg, params, kv_cache=kv_cache,
+                           meter=WallClockMeter(), bucket=SERVE_BUCKET, device=dev)
+
+
+def characterize_fleet(archs: list[str], *, batch: int = 2, max_tokens: int = 64,
+                       device: str | torch.device = "cuda") -> list:
+    """Real-execution campaign -> fitted profiles.  One model's engine is
+    alive at a time."""
+    settings = CampaignSettings(
+        vary_input_range=(8, max_tokens), vary_output_range=(8, max_tokens),
+        grid_range=(8, max_tokens), max_trials=3, min_trials=2,
+        ci_tolerance_s=0.5)
+    profiles = []
+    for arch in archs:
+        base = arch.replace("-reduced", "")
+        a_k = TABLE1.get(base, {"a_k": get_config(base).accuracy_ak})["a_k"]
+        engine = build_engine(arch, kv_cache=False, device=device)
+        rng = np.random.default_rng(0)
+
+        warmed: set = set()
+
+        def measure(tin, tout, engine=engine, rng=rng, warmed=warmed):
+            toks = rng.integers(1, engine.cfg.vocab_size,
+                                (batch, tin)).astype(np.int32)
+            if (tin, tout) not in warmed:   # exclude first-call set-up from
+                warmed.add((tin, tout))     # the measured energy (paper §3:
+                engine.generate({"tokens": toks}, tout)  # no warm-start bias)
+            _, stats = engine.generate({"tokens": toks}, tout)
+            return stats.energy_j, stats.runtime_s
+
+        trials = run_campaign(arch, measure, settings)
+        del engine, measure
+        prof = fit_profile_from_trials(arch, a_k, trials)
+        print(f"{arch}: energy R2={prof.energy.r_squared:.3f} "
+              f"runtime R2={prof.runtime.r_squared:.3f}")
+        profiles.append(prof)
+    return profiles
+
+
+def serve(archs: list[str], *, n_queries: int, zeta: float,
+          batch_size: int = 4, device: str | torch.device = "cuda") -> dict:
+    """Characterize, route and serve.  Returns {"plan", "totals",
+    "profiles"}."""
+    profiles = characterize_fleet(archs, device=device)
+    router = EnergyAwareRouter(profiles, zeta=zeta)
+
+    spec = WorkloadSpec(n_queries=n_queries, **SERVE_WORKLOAD)
+    queries = alpaca_like_workload(spec)
+    reqs = [Request(i, np.zeros(q[0], np.int32), q[1])
+            for i, q in enumerate(queries)]
+    plan = router.route(reqs)
+
+    engines = {a: build_engine(a, kv_cache=True, device=device) for a in archs}
+    totals: dict = {}
+    for arch, rs in plan.per_model.items():
+        if not rs:
+            continue
+        eng = engines[arch]
+        e_j = t_s = 0.0
+        n_tok = 0
+        qs = [(r.tau_in, r.max_new_tokens) for r in rs]
+        for b in token_batches(qs, batch_size, eng.cfg.vocab_size):
+            max_new = int(b["tau_out"].max())
+            _, stats = eng.generate({"tokens": b["tokens"]}, max_new)
+            e_j += stats.energy_j
+            t_s += stats.runtime_s
+            n_tok += int(b["lengths"].sum()) + max_new * batch_size
+        totals[arch] = {"queries": len(rs), "energy_j": e_j,
+                        "runtime_s": t_s, "tokens": n_tok}
+        print(f"{arch}: {len(rs)} queries, {e_j:.1f} J, {t_s:.1f}s measured")
+    return {"plan": plan, "totals": totals, "profiles": profiles}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--fleet", default="llama2-7b-reduced,llama2-70b-reduced")
+    p.add_argument("--queries", type=int, default=24)
+    p.add_argument("--zeta", type=float, default=0.5)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    out = serve(args.fleet.split(","), n_queries=args.queries, zeta=args.zeta,
+                device=args.device)
+    total_e = sum(t["energy_j"] for t in out["totals"].values())
+    print(f"TOTAL measured energy: {total_e:.1f} J "
+          f"(objective={out['plan'].assignment.objective:.3f})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,81 @@
+"""Decode-time KV caches.
+
+Port of the attention caches of `repro.models.cache`.  `pos` is a 0-d int32
+tensor on the cache's device: the absolute position of the *next* token to
+be written, so a decode loop never reads it back to the host.
+Sliding-window caches are ring buffers of size `window`; keys are stored
+already-roped at absolute positions so the ring overwrite is safe.
+
+The reference writes one token with `onehot_write`, an elementwise blend
+of the whole per-layer cache (which keeps a sharded layout elementwise
+under GSPMD).  Here `write_token` writes the one slot in place with
+`index_copy_`; the cache holds the same values afterwards, and a step
+moves one token's K/V instead of the whole cache.  The caller's cache
+tensors are therefore updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Full attention cache: k, v [L, B, S, Hkv, Dh]."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor   # 0-d int32
+
+    @staticmethod
+    def init(n_layers, batch, cache_len, n_kv, head_dim, dtype, device) -> "KVCache":
+        shape = (n_layers, batch, cache_len, n_kv, head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros((), dtype=torch.int32, device=device))
+
+    @property
+    def cache_len(self) -> int:
+        return self.k.shape[2]
+
+
+@dataclasses.dataclass
+class WindowKVCache:
+    """Ring-buffer sliding-window cache: k, v [L, B, W, Hkv, Dh]."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(n_layers, batch, window, n_kv, head_dim, dtype, device) -> "WindowKVCache":
+        shape = (n_layers, batch, window, n_kv, head_dim)
+        return WindowKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                             torch.zeros(shape, dtype=dtype, device=device),
+                             torch.zeros((), dtype=torch.int32, device=device))
+
+    @property
+    def window(self) -> int:
+        return self.k.shape[2]
+
+
+def write_token(cache_l: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """Write one token in place into a per-layer cache slice at `slot`.
+
+    cache_l [B, S, ...rest]; new [B, ...rest]; slot a 0-d integer tensor on
+    the cache's device."""
+    cache_l.index_copy_(1, slot.reshape(1).long(), new[:, None].to(cache_l.dtype))
+
+
+def ring_pack(ks: torch.Tensor, vs: torch.Tensor, window: int, pos_end: int):
+    """Pack full-sequence K/V [L,B,S,H,D] into ring buffers [L,B,W,H,D]
+    holding the last min(S, W) positions at slot = pos % W."""
+    S = ks.shape[2]
+    take = min(S, window)
+    slots = torch.arange(pos_end - take, pos_end, device=ks.device) % window
+    shape = ks.shape[:2] + (window,) + ks.shape[3:]
+    k = ks.new_zeros(shape)
+    v = vs.new_zeros(shape)
+    k[:, :, slots] = ks[:, :, S - take:]
+    v[:, :, slots] = vs[:, :, S - take:]
+    return k, v

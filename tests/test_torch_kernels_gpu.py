@@ -1,0 +1,156 @@
+"""Kernel B1 of the PyTorch port on an NVIDIA card.
+
+Needs a CUDA device and nvcc; every test here carries the `gpu` marker and
+skips with a reason where there is no card (a CUDA kernel has no CPU
+mode).  Imports no JAX, so it runs on a GPU machine without it:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
+
+The kernel is held against its plain PyTorch version on the card and
+against a float64 numpy oracle of the model-path semantics
+(`repro.models.attention.decode_attention`, to which
+tests/test_torch_kernels.py holds the plain version on the CPU), at the
+shapes of tests/test_kernels.py::TestFlashDecode and with ring and
+softcap.  Tolerances: 1e-4 for f32 (reduction order), 2e-2 for bf16 (the
+plain version rounds the softmax weights to bf16, as the reference does).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import decode_attention as kda
+from repro_torch.models import get_api
+from repro_torch.serving import InferenceEngine
+
+pytestmark = pytest.mark.gpu
+
+FLASH_SHAPES = [
+    (2, 8, 2, 128, 512),
+    (1, 16, 8, 128, 1024),
+    (4, 4, 1, 64, 256),
+    (2, 12, 4, 128, 384),
+    (1, 71, 71, 64, 256),
+]
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MODEL_CASES = [             # (B, Hq, Hkv, D, S, pos, ring, softcap, dtype)
+    (2, 4, 2, 32, 80, 3, False, 0.0, "float32"),
+    (2, 4, 2, 32, 80, 79, False, 0.0, "float32"),
+    (2, 4, 2, 32, 64, 20, True, 0.0, "float32"),      # ring not yet full
+    (2, 4, 2, 32, 64, 70, True, 0.0, "float32"),      # ring full
+    (2, 8, 1, 64, 96, 40, False, 2.0, "float32"),     # softcap
+    (1, 16, 2, 128, 130, 129, True, 5.0, "bfloat16"),
+    (4, 32, 32, 128, 80, 57, False, 0.0, "bfloat16"),  # llama2-7b serve shape
+    (1, 64, 8, 128, 4096, 3000, False, 0.0, "float32"),  # llama2-70b GQA
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def oracle(q, k, v, pos, ring=False, softcap=0.0):
+    """float64 numpy: the model path's decode attention."""
+    q, k, v = (t.double().cpu().numpy() for t in (q, k, v))
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    s = np.einsum("bhgd,bkhd->bhgk", q.reshape(B, Hkv, Hq // Hkv, D), k) / np.sqrt(D)
+    if softcap:
+        s = np.tanh(s / softcap) * softcap
+    valid = np.arange(S) <= pos
+    if ring:
+        valid |= pos >= S - 1
+    s = np.where(valid, s, -np.inf)
+    w = np.exp(s - s.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    return np.einsum("bhgk,bkhd->bhgd", w, v).reshape(B, Hq, D)
+
+
+def inputs(B, Hq, Hkv, D, S, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+
+
+def close(a, b, tol):
+    np.testing.assert_allclose(a.float().cpu().numpy() if torch.is_tensor(a) else a,
+                               b.float().cpu().numpy() if torch.is_tensor(b) else b,
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_full_cache(cuda, shape, dtype):
+    q, k, v = inputs(*shape, getattr(torch, dtype))
+    pos = torch.tensor(shape[-1] - 1, dtype=torch.int32, device=cuda)
+    out = kda.decode_attention(q, k, v, pos)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    close(out, kda.decode_attention_plain(q, k, v, pos), TOL[dtype])
+    close(out, oracle(q, k, v, shape[-1] - 1), TOL[dtype])
+
+
+@pytest.mark.parametrize("pos", [0, 5, 255, 400])
+def test_masking_positions(cuda, pos):
+    q, k, v = inputs(2, 4, 2, 64, 512, torch.float32, seed=pos)
+    close(kda.decode_attention(q, k, v, pos), oracle(q, k, v, pos), 1e-4)
+
+
+def test_masked_tail_is_ignored(cuda):
+    """The kernel never reads keys beyond pos: bit-identical output."""
+    q, k, v = inputs(1, 4, 2, 64, 256, torch.float32)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 101:] = 1e4
+    v2[:, 101:] = -1e4
+    assert torch.equal(kda.decode_attention(q, k, v, 100), kda.decode_attention(q, k2, v2, 100))
+
+
+@pytest.mark.parametrize("case", MODEL_CASES)
+def test_model_path_cases(cuda, case):
+    B, Hq, Hkv, D, S, pos, ring, softcap, dtype = case
+    q, k, v = inputs(B, Hq, Hkv, D, S, getattr(torch, dtype), seed=S)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = kda.launches
+    out = kda.decode_attention(q, k, v, p, ring=ring, softcap=softcap)
+    assert kda.launches == before + 1
+    tol = TOL[dtype]
+    close(out, kda.decode_attention_plain(q, k, v, p, ring=ring, softcap=softcap), tol)
+    close(out, oracle(q, k, v, pos, ring, softcap), tol)
+
+
+def test_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(2, 4, 32, device=cuda)
+    kv = torch.zeros(2, 8, 2, 32, device=cuda)
+    with pytest.raises(TypeError, match="fp8"):
+        kda.decode_attention(q, kv.to(torch.float8_e4m3fn), kv.to(torch.float8_e4m3fn), 0)
+    with pytest.raises(ValueError, match="head dims"):
+        kda.decode_attention(torch.zeros(2, 4, 48, device=cuda),
+                             torch.zeros(2, 8, 2, 48, device=cuda),
+                             torch.zeros(2, 8, 2, 48, device=cuda), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kda.decode_attention(q, kv.transpose(1, 2).contiguous().transpose(1, 2), kv, 0)
+    with pytest.raises(ValueError, match="pos"):
+        kda.decode_attention(q, kv, kv, torch.tensor(0, device=cuda))
+
+
+def test_engine_on_the_card_matches_the_cpu(cuda):
+    """Reduced f32 model: greedy tokens through the kernel on the card equal
+    the plain path's on the CPU, in both KV modes."""
+    cfg = get_config("mistral-7b-reduced")
+    cpu = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict) else v.to(cuda) for k, v in tree.items()}
+
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 60)).astype(np.int32)
+    ref, _ = InferenceEngine(cfg, cpu, kv_cache=True, device="cpu").generate({"tokens": toks}, 8)
+    before = kda.launches
+    for kv in (True, False):
+        out, _ = InferenceEngine(cfg, move(cpu), kv_cache=kv, device=cuda).generate(
+            {"tokens": toks}, 8)
+        np.testing.assert_array_equal(out, ref)
+    assert kda.launches == before + cfg.n_layers * 8
