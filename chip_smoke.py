@@ -5,21 +5,33 @@
 
 Phases, each of which must pass:
   1. device   the card's name and count, and `nvidia-smi`'s name and power limit;
-  2. build    every CUDA kernel from src/repro_torch/kernels/csrc, with the
-              compiler's register/shared-memory report;
+  2. build    every CUDA kernel from src/repro_torch/kernels/csrc (B1, B3,
+              B4), with the compiler's register/shared-memory report;
   3. check    each kernel against its plain PyTorch version on the card, at
-              the main path's shapes (f32 within 1e-4, bf16 within 2e-2);
-  4. timing   each kernel, its plain version and a library call (CUDA events,
-              L2 flushed between launches), beside the bound for its bytes;
+              the main paths' shapes: B1 (f32 within 1e-4, bf16 within 2e-2)
+              at the llama2 shapes and recurrentgemma-9b's head dim 256
+              ring; B3 at mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16
+              within 2e-2 of the output's largest magnitude); B4 at
+              recurrentgemma-9b's (1e-4);
+  4. timing   each kernel, its plain version and, for B1, a library call
+              (CUDA events, L2 flushed between launches), beside the bound
+              for its bytes or operations;
   5. serve    the paper's serve path through `repro_torch.launch.serve.serve`
-              at the full width of llama2-7b and llama2-13b (random bf16
-              weights drawn on the card): characterize with the KV cache off,
-              fit, route 24 queries, serve with the KV cache on.  Kernel B1's
-              launch count over that run must equal the decode work done;
-  6. outputs  a reduced model on the card (through the kernels) against the
-              same model on the CPU (plain versions), and finite full-width
+              twice, each at full width with random bf16 weights drawn on
+              the card: characterize with the KV cache off, fit, route 24
+              queries, serve with the KV cache on.  First llama2-7b and
+              llama2-13b (characterized up to 32 tokens), where kernel B1's
+              launch count must equal the decode work done; then
+              mamba2-130m and recurrentgemma-9b (up to 64 tokens), where
+              every prefill must launch B3 once per SSM layer or B4 once per
+              recurrent layer, and every decode step B1 once per attention
+              layer; one KV-on generate of each outside the router makes
+              every kernel launch whatever the routing;
+  6. outputs  reduced models on the card (through the kernels) against the
+              same models on the CPU (plain versions), and finite full-width
               decode logits that agree with a full re-forward; then the
-              device's busy share of a full-width decode step (profiler).
+              device's busy share of full-width decode steps and prefills
+              and the kernels' shares of it (profiler).
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's sources beside it, or when any phase fails.  The last line is
@@ -28,7 +40,9 @@ port's sources beside it, or when any phase fails.  The last line is
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import gc
 import json
 import math
 import subprocess
@@ -40,6 +54,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA-core f32, bf16 tensor
 SERVE_ARCHS = ["llama2-7b", "llama2-13b"]
+SERVE_CHAR_MAX_TOKENS = 32      # the llama2 path's characterization grid top
+SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
 SERVE_QUERIES = 24
 
 
@@ -91,6 +107,7 @@ def decode_shapes(torch, serve_mod):
         "llama2-7b serve": (4, 32, 32, 128, s_serve, torch.bfloat16),
         "llama2-13b serve": (4, 40, 40, 128, s_serve, torch.bfloat16),
         "llama2-70b GQA": (4, 64, 8, 128, 4096, torch.bfloat16),
+        "recurrentgemma-9b ring": (4, 16, 1, 256, 2048, torch.bfloat16),
         "reduced": (2, 4, 2, 32, s_serve, torch.float32),
     }
 
@@ -245,7 +262,8 @@ def run_serve(torch, kda, serve_mod) -> int:
     kda.launches = 0
     e0 = nvml.millijoules() if nvml else None
     t0 = time.perf_counter()
-    out = serve_mod.serve(SERVE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5, device="cuda")
+    out = serve_mod.serve(SERVE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
+                          char_max_tokens=SERVE_CHAR_MAX_TOKENS, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kda.launches
@@ -276,37 +294,47 @@ def run_serve(torch, kda, serve_mod) -> int:
     return launches
 
 
-def check_outputs(torch, serve_mod) -> None:
+def compare_reduced(torch, arch, prompt_len) -> None:
+    """A reduced f32 model on the card (through the kernels) against the
+    same weights on the CPU (plain versions): greedy tokens identical,
+    prefill and decode logits within 1e-4."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import get_api
     from repro_torch.serving import InferenceEngine
 
-    # reduced f32: card (through B1) against CPU (plain), same weights
-    cfg = get_config("llama2-7b-reduced")
+    cfg = get_config(arch)
     api = get_api(cfg)
     cpu = api.init_params(cfg, torch.Generator().manual_seed(1), torch.device("cpu"))
     gpu = _map(cpu, lambda t: t.to("cuda"))
-    toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, 12)).astype(np.int32)
+    toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, prompt_len)).astype(np.int32)
     a, _ = InferenceEngine(cfg, gpu, kv_cache=True, device="cuda").generate({"tokens": toks}, 8)
     b, _ = InferenceEngine(cfg, cpu, kv_cache=False, device="cpu").generate({"tokens": toks}, 8)
-    print(f"[outputs] reduced greedy tokens, card KV-on vs CPU KV-off: identical={np.array_equal(a, b)}")
-    check(np.array_equal(a, b), "reduced greedy tokens differ between card and CPU")
+    print(f"[outputs] {arch} greedy tokens, card KV-on vs CPU KV-off: "
+          f"identical={np.array_equal(a, b)}")
+    check(np.array_equal(a, b), f"{arch}: greedy tokens differ between card and CPU")
     worst = 0.0
     with torch.no_grad():
-        lg, cg = api.prefill(cfg, gpu, {"tokens": torch.as_tensor(toks, device="cuda")}, cache_len=32)
-        lc, cc = api.prefill(cfg, cpu, {"tokens": torch.as_tensor(toks)}, cache_len=32)
+        lg, cg = api.prefill(cfg, gpu, {"tokens": torch.as_tensor(toks, device="cuda")},
+                             cache_len=prompt_len + 20)
+        lc, cc = api.prefill(cfg, cpu, {"tokens": torch.as_tensor(toks)},
+                             cache_len=prompt_len + 20)
         worst = max(worst, (lg.cpu() - lc).abs().max().item())
         for t in range(4):
             tok = torch.as_tensor(a[:, t])
             lg, cg = api.decode_step(cfg, gpu, cg, {"token": tok.to("cuda")})
             lc, cc = api.decode_step(cfg, cpu, cc, {"token": tok})
             worst = max(worst, (lg.cpu() - lc).abs().max().item())
-    print(f"[outputs] reduced logits, card vs CPU: max_abs_err={worst:.3e} tol=1e-4")
-    check(worst <= 1e-4, "reduced logits differ between card and CPU")
+    print(f"[outputs] {arch} logits, card vs CPU: max_abs_err={worst:.3e} tol=1e-4")
+    check(worst <= 1e-4, f"{arch}: logits differ between card and CPU")
 
-    # full width: decode logits finite and close to a full re-forward
-    eng = serve_mod.build_engine("llama2-7b", kv_cache=True, device="cuda")
+
+def check_full_width(torch, serve_mod, arch):
+    """Full width: decode logits finite and close to a full re-forward of
+    the same tokens.  Returns (engine, cache, last token) for profiling."""
+    import numpy as np
+    from repro_torch.models.common import padded_vocab
+    eng = serve_mod.build_engine(arch, kv_cache=True, device="cuda")
     cfg, api = eng.cfg, eng.api
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         1, cfg.vocab_size, (4, 16)).astype(np.int32), device="cuda")
@@ -316,55 +344,354 @@ def check_outputs(torch, serve_mod) -> None:
             logits, cache = api.decode_step(cfg, eng.params, cache, {"token": toks[:, t]})
         full, _ = api.prefill(cfg, eng.params, {"tokens": toks}, cache_len=16)
     torch.cuda.synchronize()
+    shape = tuple(logits.shape)
+    # columns past the vocabulary pad it to a multiple of 128, masked to -1e30
+    logits, full = logits[:, :cfg.vocab_size], full[:, :cfg.vocab_size]
     finite = bool(torch.isfinite(logits).all())
     rel = ((logits - full).norm() / full.norm()).item()
-    print(f"[outputs] {cfg.name} decode logits {tuple(logits.shape)} finite={finite}; "
+    print(f"[outputs] {cfg.name} decode logits {shape} finite={finite}; "
           f"relative L2 difference from a full re-forward={rel:.4f} (tol 0.1)")
-    check(finite and tuple(logits.shape) == (4, cfg.vocab_size), "full-width logits bad")
-    # bf16 rounds at other points in the two paths, through 32 layers
-    check(rel <= 0.1, "full-width decode disagrees with the re-forward")
-    decode_breakdown(torch, api, cfg, eng.params, cache, toks[:, 15])
+    check(finite and shape == (4, padded_vocab(cfg.vocab_size)), f"{cfg.name}: logits bad")
+    # bf16 rounds at other points in the two paths, through every layer
+    check(rel <= 0.1, f"{cfg.name}: full-width decode disagrees with the re-forward")
+    return eng, cache, toks[:, 15]
 
 
-def decode_breakdown(torch, api, cfg, params, cache, token, steps=8) -> None:
-    """Wall time of a full-width decode step (unprofiled) against the
-    device's busy time in it (torch.profiler: the sum of the kernels'
-    device time), and the kernels that take the device time."""
+def check_outputs(torch, serve_mod) -> None:
+    compare_reduced(torch, "llama2-7b-reduced", 12)
+    eng, cache, token = check_full_width(torch, serve_mod, "llama2-7b")
+    decode_breakdown(torch, eng.api, eng.cfg, eng.params, cache, token,
+                     ("decode_split_kernel", "decode_combine_kernel"), "B1 (split + combine kernels)")
+
+
+def _profile(torch, fn, steps):
+    """Wall ms per call of fn (unprofiled, synchronized), and the kernels
+    torch.profiler saw over `steps` more calls (None and why if it saw no
+    device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            _, cache = api.decode_step(cfg, params, cache, {"token": token})
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(steps):
-                    _, cache = api.decode_step(cfg, params, cache, {"token": token})
+                    fn()
                 torch.cuda.synchronize()
             # kernels only: an operator's row repeats its kernels' device time
             events = [e for e in prof.key_averages()
                       if getattr(e, "device_type", None) == DeviceType.CUDA
                       and e.self_device_time_total > 0]
         except (RuntimeError, AssertionError) as e:   # reporting only: no tracer
-            events, why = [], str(e)
-        else:
-            why = "the profiler saw no device time"
+            return wall_ms, None, str(e)
+    return wall_ms, events or None, "the profiler saw no device time"
+
+
+def _breakdown(label, wall_ms, events, why, steps, kernel_keys, kernel_label) -> None:
     if not events:
-        print(f"[profile] {cfg.name} decode step: wall {wall_ms:.3f} ms; device busy "
-              f"share not measured ({why})")
+        print(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy share not measured ({why})")
         return
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    print(f"[profile] {cfg.name} decode step, B={token.shape[0]}: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    b1_ms = sum(e.self_device_time_total for e in events
-                if "decode_split_kernel" in e.key or "decode_combine_kernel" in e.key) / 1e3 / steps
-    print(f"[profile]   B1 (split + combine kernels): {b1_ms:.4f} ms/step, "
-          f"{b1_ms / busy_ms:.3f} of device busy time")
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}")
+    k_ms = sum(e.self_device_time_total for e in events
+               if any(k in e.key for k in kernel_keys)) / 1e3 / steps
+    print(f"[profile]   {kernel_label}: {k_ms:.4f} ms per call, "
+          f"{k_ms / busy_ms:.3f} of device busy time")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / steps:.4f} ms/step "
+        print(f"[profile]   {e.self_device_time_total / 1e3 / steps:.4f} ms per call "
               f"x{e.count // steps} {e.key[:90]}")
+
+
+def decode_breakdown(torch, api, cfg, params, cache, token, kernel_keys, kernel_label,
+                     steps=8) -> None:
+    """Wall time of a full-width decode step (unprofiled) against the
+    device's busy time in it (torch.profiler: the sum of the kernels'
+    device time), and the named kernels' share of that time."""
+    state = {"cache": cache}
+
+    def step():
+        _, state["cache"] = api.decode_step(cfg, params, state["cache"], {"token": token})
+
+    wall_ms, events, why = _profile(torch, step, steps)
+    _breakdown(f"{cfg.name} decode step, B={token.shape[0]}", wall_ms, events, why, steps,
+               kernel_keys, kernel_label)
+
+
+def prefill_breakdown(torch, api, cfg, params, tokens, kernel_keys, kernel_label,
+                      steps=4) -> None:
+    """The same for a full-width prefill of `tokens`."""
+    wall_ms, events, why = _profile(
+        torch, lambda: api.prefill(cfg, params, {"tokens": tokens}, cache_len=tokens.shape[1]),
+        steps)
+    _breakdown(f"{cfg.name} prefill, B={tokens.shape[0]} S={tokens.shape[1]}", wall_ms,
+               events, why, steps, kernel_keys, kernel_label)
+
+
+# ---------------------------------------------------------------------------
+# Kernels B3 and B4: checks and timing
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(torch, b, s, h, p, g, n, dtype, seed):
+    """tests/test_kernels.py::TestSSDScan's scales."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return ((rand(b, s, h, p) * 0.5).to(dtype), -(rand(b, s, h) * 0.3).abs(),
+            (rand(b, s, g, n) * 0.5).to(dtype), (rand(b, s, g, n) * 0.5).to(dtype),
+            rand(b, h, p, n) * 0.5)
+
+
+def rglru_inputs(torch, B, S, W, seed):
+    """tests/test_kernels.py::TestRGLRU's scales."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (0.7 + 0.299 * torch.rand((B, S, W), generator=gen, device="cuda"),
+            0.1 * torch.randn((B, S, W), generator=gen, device="cuda"),
+            torch.randn((B, W), generator=gen, device="cuda"))
+
+
+def ssd_within(torch, ours, plain, dtype) -> tuple[float, bool]:
+    """f32: atol 2e-4, rtol 1e-3 (TestSSDScan).  bf16: within 2e-2 of the
+    output's largest magnitude (the plain version rounds its scores and
+    chunk states to bf16 as the reference does; the kernel keeps f32)."""
+    diff = (ours.float() - plain.float()).abs()
+    if dtype == torch.float32:
+        return diff.max().item(), bool((diff <= 2e-4 + 1e-3 * plain.float().abs()).all())
+    return diff.max().item(), diff.max().item() <= 2e-2 * plain.float().abs().max().item()
+
+
+def check_scans(torch, kss, krg) -> dict:
+    """B3 at mamba2-130m's shape (h=24, p=64, n=128, one group) and B4 at
+    recurrentgemma-9b's width (W=4096), S spanning short, ragged, whole and
+    multi-chunk sequences, with and without an initial state.  Returns
+    kernel -> worst max_abs_err per dtype."""
+    worst = collections.defaultdict(float)
+    misses = []
+    for b in (2, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            for s in (8, 37, 128, 256, 300):
+                xdt, dA, B, C, h0 = ssd_inputs(torch, b, s, 24, 64, 1, 128, dtype, seed=s + b)
+                for init in (None, h0):
+                    y, fin = kss.ssd_scan(xdt, dA, B, C, chunk=256, h0=init)
+                    y_p, fin_p = kss.ssd_scan_plain(xdt, dA, B, C, chunk=256, h0=init)
+                    (ey, oy), (ef, of) = (ssd_within(torch, y, y_p, dtype),
+                                          ssd_within(torch, fin, fin_p, dtype))
+                    name = str(dtype).removeprefix("torch.")
+                    worst[f"B3 {name}"] = max(worst[f"B3 {name}"], ey, ef)
+                    label = f"b={b} S={s} {name} h0={'yes' if init is not None else 'no'}"
+                    print(f"[check] B3 {label}: y max_abs_err={ey:.3e}, final state "
+                          f"max_abs_err={ef:.3e} {'ok' if oy and of else 'MISS'}")
+                    if not (oy and of):
+                        misses.append(f"B3 {label}")
+    for s in (1, 8, 37, 128, 300):
+        a, bb, h0 = rglru_inputs(torch, 2, s, 4096, seed=s)
+        for init in (None, h0):
+            h, last = krg.rglru_scan(a, bb, init)
+            h_p, last_p = krg.rglru_scan_plain(a, bb, init)
+            err = max((h - h_p).abs().max().item(), (last - last_p).abs().max().item())
+            ok = bool(((h - h_p).abs() <= 1e-4 + 1e-4 * h_p.abs()).all()
+                      and ((last - last_p).abs() <= 1e-4 + 1e-4 * last_p.abs()).all())
+            worst["B4 float32"] = max(worst["B4 float32"], err)
+            label = f"B=2 S={s} W=4096 h0={'yes' if init is not None else 'no'}"
+            print(f"[check] B4 {label}: max_abs_err={err:.3e} tol=1e-4 {'ok' if ok else 'MISS'}")
+            if not ok:
+                misses.append(f"B4 {label}")
+    torch.cuda.synchronize()
+    check(not misses, f"B3/B4 disagree with their plain versions: {misses}")
+    return dict(worst)
+
+
+def ssd_bound(b, s, h, p, g, n, dtype_name) -> tuple[float, str]:
+    """x and B, C read, dA read, y and the f32 final state written, against
+    the memory rate; or the recurrence's 4*P*N flops a step a head against
+    the peak rate for the input type, whichever is larger."""
+    size = 4 if dtype_name == "float32" else 2
+    bytes_ = (2 * b * s * h * p * size + 2 * b * s * g * n * size + 4 * b * s * h
+              + 4 * b * h * p * n)
+    ops = 4 * b * s * h * p * n
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rglru_bound(B, S, W) -> tuple[float, str]:
+    """a and b read, h and h_last written (f32), against the memory rate;
+    or one multiply-add a step a channel against the f32 rate."""
+    bytes_ = 3 * B * S * W * 4 + B * W * 4
+    ops = 2 * B * S * W
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_scans(torch, kss, krg) -> dict:
+    """B3 and B4 at the shapes the serve path gives them: the KV-off
+    characterization's longest forward (batch 2, S=128) and a KV-on serve
+    prefill (batch 4, S=48), bf16 as the models run B3, f32 for B4.  No
+    single PyTorch call computes either function: no library time."""
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, b, s in (("characterize", 2, 128), ("serve", 4, 48)):
+        xdt, dA, B, C, _ = ssd_inputs(torch, b, s, 24, 64, 1, 128, torch.bfloat16, seed=7)
+        t = {"ms": time_ms(torch, lambda: kss.ssd_scan(xdt, dA, B, C, chunk=256), flush),
+             "plain_ms": time_ms(torch, lambda: kss.ssd_scan_plain(xdt, dA, B, C, chunk=256),
+                                 flush),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = ssd_bound(b, s, 24, 64, 1, 128, "bfloat16")
+        t["shape"] = f"b={b} S={s} h=24 p=64 g=1 n=128 bfloat16"
+        out[f"B3 {label}"] = t
+        a, bb, _ = rglru_inputs(torch, b, s, 4096, seed=7)
+        t = {"ms": time_ms(torch, lambda: krg.rglru_scan(a, bb), flush),
+             "plain_ms": time_ms(torch, lambda: krg.rglru_scan_plain(a, bb), flush),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = rglru_bound(b, s, 4096)
+        t["shape"] = f"B={b} S={s} W=4096 float32"
+        out[f"B4 {label}"] = t
+    for name, t in out.items():
+        print(f"[time] {name} ({t['shape']}): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The ssm + hybrid fleet's serve path
+# ---------------------------------------------------------------------------
+
+
+class EngineCalls:
+    """Counts the engines' prefill and decode calls per (model, KV mode,
+    kind), and the kernel launches each made, by wrapping
+    InferenceEngine._prefill/_decode while the block runs."""
+
+    def __init__(self, engine_cls, counters: dict):
+        self.cls, self.counters = engine_cls, counters
+        self.calls = collections.Counter()
+        self.launches = collections.Counter()
+
+    def _wrap(self, orig, kind):
+        def call(eng, *args, **kw):
+            before = {k: m.launches for k, m in self.counters.items()}
+            out = orig(eng, *args, **kw)
+            key = (eng.cfg.name, eng.kv_cache, kind)
+            self.calls[key] += 1
+            for k, m in self.counters.items():
+                self.launches[key + (k,)] += m.launches - before[k]
+            return out
+        return call
+
+    def __enter__(self):
+        self.orig = self.cls._prefill, self.cls._decode
+        self.cls._prefill = self._wrap(self.orig[0], "prefill")
+        self.cls._decode = self._wrap(self.orig[1], "decode")
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._prefill, self.cls._decode = self.orig
+
+
+def per_call_launches(cfg, kind) -> dict:
+    """Kernel launches one engine call of a scan-fleet model must make."""
+    from repro_torch.models import hybrid
+    is_hybrid = cfg.family == "hybrid"
+    if kind == "prefill":
+        return {"B3": cfg.n_layers if cfg.family == "ssm" else 0,
+                "B4": hybrid.n_rec_layers(cfg) if is_hybrid else 0, "B1": 0}
+    return {"B3": 0, "B4": 0, "B1": hybrid.pattern_counts(cfg)[2] if is_hybrid else 0}
+
+
+def run_scan_serve(torch, counters, serve_mod) -> dict:
+    """serve() of the ssm + hybrid fleet, then one KV-on generate of each
+    model outside the router.  Every engine call's kernel launches must be
+    its layers' count.  Returns kernel -> launches over the whole run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serving import InferenceEngine
+    try:
+        nvml = Nvml()
+    except (OSError, PhaseError) as e:
+        nvml = None
+        print(f"[scan-serve] NVML energy: not measured ({e})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for m in counters.values():
+        m.launches = 0
+    with EngineCalls(InferenceEngine, counters) as calls:
+        e0 = nvml.millijoules() if nvml else None
+        t0 = time.perf_counter()
+        out = serve_mod.serve(SCAN_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        e1 = nvml.millijoules() if nvml else None
+        for arch in SCAN_ARCHS:      # every kernel, whatever the routing
+            eng = serve_mod.build_engine(arch, kv_cache=True, device="cuda")
+            toks = np.random.default_rng(3).integers(1, eng.cfg.vocab_size, (4, 40))
+            gen, _ = eng.generate({"tokens": toks.astype(np.int32)}, 8)
+            check(gen.shape == (4, 8), f"{arch}: generate returned {gen.shape}")
+            del eng
+        torch.cuda.synchronize()
+    launches = {k: m.launches for k, m in counters.items()}
+
+    for prof in out["profiles"]:
+        print(f"[scan-serve] {prof.name}: energy R2={prof.energy.r_squared} "
+              f"runtime R2={prof.runtime.r_squared}")
+        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared),
+              f"{prof.name}: fit is not finite")
+    for arch, t in out["totals"].items():
+        print(f"[scan-serve] {arch}: queries={t['queries']} tokens={t['tokens']} "
+              f"measured_s={t['runtime_s']} host-model_J={t['energy_j']}")
+    print(f"[scan-serve] serve() wall s={wall}")
+    if nvml:
+        print(f"[scan-serve] NVML J over serve() (characterize + serve)={(e1 - e0) / 1e3}")
+    print(f"[scan-serve] max_memory_allocated GiB={torch.cuda.max_memory_allocated() / 2**30}")
+    n_routed = sum(len(rs) for rs in out["plan"].per_model.values())
+    check(n_routed == SERVE_QUERIES, f"plan routed {n_routed} of {SERVE_QUERIES} queries")
+    check(sum(t["queries"] for t in out["totals"].values()) == SERVE_QUERIES,
+          "served query count differs from the plan")
+
+    bad = []
+    for (arch, kv, kind), n in sorted(calls.calls.items()):
+        want = per_call_launches(get_config(arch), kind)
+        got = {k: calls.launches[(arch, kv, kind, k)] for k in counters}
+        print(f"[scan-serve] {arch} KV-{'on' if kv else 'off'} {kind}: {n} calls, "
+              f"launches {got}, expected {({k: n * w for k, w in want.items()})}")
+        if got != {k: n * w for k, w in want.items()}:
+            bad.append(f"{arch} kv={kv} {kind}")
+    check(not bad, f"kernel launches differ from the layer counts: {bad}")
+    check(launches == {k: sum(v for key, v in calls.launches.items() if key[3] == k)
+                       for k in counters}, "kernel launches outside the engines' calls")
+    for k, key in (("B3", ("mamba2-130m", True, "prefill")),
+                   ("B4", ("recurrentgemma-9b", True, "prefill")),
+                   ("B1", ("recurrentgemma-9b", True, "decode"))):
+        check(calls.launches[key + (k,)] > 0, f"{k} never launched on the KV-on path")
+    print(f"[scan-serve] launches over the run: {launches}")
+    return launches
+
+
+def check_scan_outputs(torch, serve_mod) -> None:
+    compare_reduced(torch, "mamba2-130m-reduced", 37)
+    compare_reduced(torch, "recurrentgemma-9b-reduced", 37)
+    for arch, keys, label in (
+            ("mamba2-130m", ("ssd_chunk_scan_kernel",), "B3"),
+            ("recurrentgemma-9b", ("rglru_scan_kernel",), "B4")):
+        eng, cache, token = check_full_width(torch, serve_mod, arch)
+        tokens = torch.randint(1, eng.cfg.vocab_size, (4, 48), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(4))
+        prefill_breakdown(torch, eng.api, eng.cfg, eng.params, tokens, keys, label)
+        if arch == "recurrentgemma-9b":
+            decode_breakdown(torch, eng.api, eng.cfg, eng.params, cache, token,
+                             ("decode_split_kernel", "decode_combine_kernel"),
+                             "B1 (split + combine kernels, head dim 256)")
+        del eng, cache
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _map(tree, fn):
@@ -384,6 +711,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import rglru_scan as krg
+    from repro_torch.kernels import ssd_scan as kss
     from repro_torch.launch import serve as serve_mod
 
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -401,18 +730,38 @@ def main() -> int:
 
     shapes = decode_shapes(torch, serve_mod)
     errs = check_decode(torch, kda, shapes)
+    scan_errs = check_scans(torch, kss, krg)
     timing = time_decode(torch, kda, shapes)
+    timing.update(time_scans(torch, kss, krg))
+    t0 = time.perf_counter()
     launches = run_serve(torch, kda, serve_mod)
     check_outputs(torch, serve_mod)
+    print(f"[phase] llama2 path (serve + outputs) s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    scan_launches = run_scan_serve(torch, {"B3": kss, "B4": krg, "B1": kda}, serve_mod)
+    check_scan_outputs(torch, serve_mod)
+    print(f"[phase] mamba2 + recurrentgemma path (serve + outputs) s={time.perf_counter() - t0}")
 
-    main_shape = "llama2-7b serve"
-    kernels = [dict(
-        name="decode_attention (B1, flash-decode GQA)", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:72",
-        launches=launches, max_abs_err=errs[main_shape],
-        **{k: timing[main_shape][k] for k in
-           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})]
+    def entry(name, source, replaces, n, err, shape):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=replaces, launches=n, max_abs_err=err,
+                    **{k: timing[shape][k] for k in
+                       ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})
+
+    b1 = "src/repro/kernels/decode_attention.py:72"
+    kernels = [
+        entry("decode_attention (B1, flash-decode GQA), llama2 path", "decode_attention.cu",
+              b1, launches, errs["llama2-7b serve"], "llama2-7b serve"),
+        entry("decode_attention (B1) at head dim 256, recurrentgemma-9b path",
+              "decode_attention.cu", b1, scan_launches["B1"],
+              errs["recurrentgemma-9b ring"], "recurrentgemma-9b ring"),
+        entry("ssd_scan (B3, Mamba-2 SSD chunk scan)", "ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:73", scan_launches["B3"],
+              scan_errs["B3 bfloat16"], "B3 characterize"),
+        entry("rglru_scan (B4, RG-LRU linear recurrence)", "rglru_scan.cu",
+              "src/repro/kernels/rglru_scan.py:53", scan_launches["B4"],
+              scan_errs["B4 float32"], "B4 characterize"),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

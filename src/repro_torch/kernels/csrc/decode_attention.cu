@@ -25,7 +25,9 @@
 //    prefix evenly, computed on the device from pos, so no block is idle
 //    however short the prefix.
 //  * Each K/V row is read with coalesced 16-byte loads by LPR lanes of a
-//    warp; a warp covers 32/LPR rows at once.  Each such row group is an
+//    warp; a warp covers 32/LPR rows at once.  A row wider than a warp's
+//    32 loads (D=256 in f32) is read in PIECES loads a lane, 512 bytes
+//    apart, so a lane holds E = PIECES * VEC of its dims.  Each such row group is an
 //    independent online-softmax stream (running max m, normalizer l and
 //    accumulator acc in f32 registers) over its own keys.  The query rows
 //    live in shared memory in f32.
@@ -87,8 +89,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ part_acc, int S, int Hkv, int G,
                     int n_splits, float scale, float softcap) {
   constexpr int VEC = Vec16<T>::N;     // elements per 16-byte load
-  constexpr int LPR = D / VEC;         // lanes per K/V row
-  static_assert(D % VEC == 0 && LPR >= 2 && LPR <= 32 && 32 % LPR == 0,
+  constexpr int LPR = D / VEC < 32 ? D / VEC : 32;   // lanes per K/V row
+  constexpr int PIECES = D / (VEC * LPR);            // 16-byte loads per lane per row
+  constexpr int E = PIECES * VEC;      // dims a lane holds
+  static_assert(D % (VEC * LPR) == 0 && LPR >= 2 && 32 % LPR == 0,
                 "head dim must fill whole 16-byte lanes of one warp");
   constexpr int RPW = 32 / LPR;        // rows a warp reads at once
   constexpr int NS = kWarps * RPW;     // online-softmax streams per block
@@ -125,13 +129,16 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kb = min(split * chunk, n_valid);
   const int ke = min(kb + chunk, n_valid);
 
-  float m[GB], l[GB], acc[GB][VEC];
+  // Element e of a lane is dim dim_of(e) of the row.
+  auto dim_of = [&](int e) { return (e / VEC) * VEC * LPR + sub * VEC + e % VEC; };
+
+  float m[GB], l[GB], acc[GB][E];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
   const size_t row_stride = (size_t)Hkv * D;
@@ -143,19 +150,22 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int base = kb + warp * RPW; base < ke; base += NS) {
     const int j = base + grp;
     const bool live = j < ke;
-    float kv[VEC], vv[VEC];
+    float kv[E], vv[E];
     if (live) {
-      Vec16<T>::load(kp + (size_t)j * row_stride, kv);
-      Vec16<T>::load(vp + (size_t)j * row_stride, vv);
+#pragma unroll
+      for (int pc = 0; pc < PIECES; ++pc) {
+        Vec16<T>::load(kp + (size_t)j * row_stride + pc * VEC * LPR, kv + pc * VEC);
+        Vec16<T>::load(vp + (size_t)j * row_stride + pc * VEC * LPR, vv + pc * VEC);
+      }
     } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) kv[e] = vv[e] = 0.f;
+      for (int e = 0; e < E; ++e) kv[e] = vv[e] = 0.f;
     }
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       float s = 0.f;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) s = fmaf(q_s[g][sub * VEC + e], kv[e], s);
+      for (int e = 0; e < E; ++e) s = fmaf(q_s[g][dim_of(e)], kv[e], s);
 #pragma unroll
       for (int off = LPR / 2; off > 0; off /= 2) s += __shfl_xor_sync(kFull, s, off);
       s *= scale;
@@ -167,7 +177,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = expf(s - m_new);
         l[g] = l[g] * alpha + p;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e] * alpha);
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e] * alpha);
         m[g] = m_new;
       }
     }
@@ -185,7 +195,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float a = rescale(m[g], M), ao = rescale(mo, M);
       l[g] = l[g] * a + lo * ao;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < E; ++e) {
         const float acc_o = __shfl_xor_sync(kFull, acc[g][e], off);
         acc[g][e] = acc[g][e] * a + acc_o * ao;
       }
@@ -200,7 +210,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         w_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) w_acc[warp][g][sub * VEC + e] = acc[g][e];
+      for (int e = 0; e < E; ++e) w_acc[warp][g][dim_of(e)] = acc[g][e];
     }
   }
   __syncthreads();
@@ -294,6 +304,7 @@ cudaError_t dispatch_dim(int D, int group_block, const void* q, const void* k,
     case 32: return dispatch_group<T, 32>(group_block, q, k, v, pos, out, pm, pl, pa, B, Hq, Hkv, S, n_splits, scale, softcap, st);
     case 64: return dispatch_group<T, 64>(group_block, q, k, v, pos, out, pm, pl, pa, B, Hq, Hkv, S, n_splits, scale, softcap, st);
     case 128: return dispatch_group<T, 128>(group_block, q, k, v, pos, out, pm, pl, pa, B, Hq, Hkv, S, n_splits, scale, softcap, st);
+    case 256: return dispatch_group<T, 256>(group_block, q, k, v, pos, out, pm, pl, pa, B, Hq, Hkv, S, n_splits, scale, softcap, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -29,7 +29,7 @@ NEG_INF = -1e30
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GROUP_BLOCK = 8
 _TARGET_BLOCKS = 2 * 132       # two blocks for each of the H100's 132 SMs
 _MIN_KEYS_PER_SPLIT = 64
@@ -114,6 +114,7 @@ def _launch(q, k_cache, v_cache, pos, softcap):
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    fn = _kernel()
     if not isinstance(pos, torch.Tensor):
         pos = torch.tensor(int(pos), dtype=torch.int32, device=q.device)
     if pos.dtype != torch.int32 or pos.numel() != 1 or pos.device != q.device:
@@ -128,7 +129,7 @@ def _launch(q, k_cache, v_cache, pos, softcap):
     out = torch.empty_like(q)
     part_ml = torch.empty((2, B * Hq * n_splits), dtype=torch.float32, device=q.device)
     part_acc = torch.empty((B * Hq * n_splits, D), dtype=torch.float32, device=q.device)
-    err = _kernel()(
+    err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
         part_acc.data_ptr(), _DTYPE_CODES[q.dtype], B, Hq, Hkv, S, D, n_splits,

@@ -1,0 +1,95 @@
+"""RG-LRU linear recurrence (kernel B4): h_t = a_t * h_{t-1} + b_t per
+channel, over a whole sequence.
+
+Replaces the TPU kernel `repro.kernels.rglru_scan.rglru_scan_pallas` with
+the hand-written CUDA kernel in `csrc/rglru_scan.cu` (see the note there
+for its bound and design), and computes the recurrence of the model path
+`repro.models.hybrid.rglru_scan` after `_lru_coeffs`: any S and W (the
+Pallas kernel needs block multiples) and an initial state `h0`, folded
+in as the reference folds it.
+
+`rglru_scan` is the one entry point.  For CPU tensors it runs
+`rglru_scan_plain`, the same function in plain PyTorch; for CUDA tensors
+it launches the kernel or raises, and never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+# Launches of the CUDA kernel through `rglru_scan` since the last reset; a
+# run sets it to 0 and reads it to show that it went through B4.
+launches = 0
+
+
+def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
+                     h0: torch.Tensor | None = None):
+    """The recurrence in plain PyTorch: a doubling (Hillis-Steele) scan of
+    the affine maps (a_t, b_t), log2(S) whole-tensor steps, as the Pallas
+    kernel does within a block.  a, b [B,S,W]; h0 [B,W] or None.
+    Returns (h [B,S,W] f32, h_last [B,W] f32)."""
+    a = a.float()
+    b = b.float()
+    if h0 is not None:
+        # fold the initial state into the first step: h_1 = a_1 h_0 + b_1
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], dim=1)
+    n = 1
+    while n < a.shape[1]:
+        b = torch.cat([b[:, :n], a[:, n:] * b[:, :-n] + b[:, n:]], dim=1)
+        a = torch.cat([a[:, :n], a[:, n:] * a[:, :-n]], dim=1)
+        n *= 2
+    return b, b[:, -1]
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None):
+    """`rglru_scan_plain`'s function: the plain version on CPU tensors, the
+    CUDA kernel on CUDA tensors."""
+    if a.dim() != 3 or b.shape != a.shape or a.shape[1] < 1:
+        raise ValueError(f"want a, b [B,S,W] of one shape; got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    Bsz, _, W = a.shape
+    if h0 is not None and tuple(h0.shape) != (Bsz, W):
+        raise ValueError(f"h0 must be [B,W] = {(Bsz, W)}; got {tuple(h0.shape)}")
+    tensors = [a, b] + ([] if h0 is None else [h0])
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return rglru_scan_plain(a, b, h0)
+    if len(devices) != 1 or a.device.type != "cuda":
+        raise ValueError(f"rglru_scan runs on CPU or CUDA tensors on one device; "
+                         f"got {sorted(map(str, devices))}")
+    return _launch(a, b, h0)
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("rglru_scan").rglru_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(a, b, h0):
+    global launches
+    for name, t in (("a", a), ("b", b), ("h0", h0)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"the RG-LRU kernel takes float32; {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    Bsz, S, W = a.shape
+    fn = _kernel()
+    h = torch.empty_like(a)
+    h_last = torch.empty((Bsz, W), dtype=torch.float32, device=a.device)
+    err = fn(a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+             h.data_ptr(), h_last.data_ptr(), Bsz, S, W,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"rglru_scan kernel launch failed: cudaError_t {err}")
+    launches += 1
+    return h, h_last

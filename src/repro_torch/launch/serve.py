@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fleet llama2-7b,llama2-13b \
         --queries 24 --zeta 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet mamba2-130m,recurrentgemma-9b
 
 Port of `repro.launch.serve`:
 
@@ -12,6 +13,10 @@ Port of `repro.launch.serve`:
    zeta and serve every batch through the real engines (KV cache ON — the
    production path, whose decode attention is kernel B1), reporting
    measured energy/runtime per model.
+
+Every ported family serves: dense (llama2, mistral), ssm (mamba2-130m,
+whose prefill runs kernel B3) and hybrid (recurrentgemma-9b: kernel B4 in
+prefill, B1 at head dim 256 in decode).
 
 Weights are random, drawn on the device from a seeded torch.Generator in
 the config's dtype.  Runs on CUDA unless `device="cpu"` is passed.
@@ -89,10 +94,11 @@ def characterize_fleet(archs: list[str], *, batch: int = 2, max_tokens: int = 64
 
 
 def serve(archs: list[str], *, n_queries: int, zeta: float,
-          batch_size: int = 4, device: str | torch.device = "cuda") -> dict:
-    """Characterize, route and serve.  Returns {"plan", "totals",
-    "profiles"}."""
-    profiles = characterize_fleet(archs, device=device)
+          batch_size: int = 4, char_max_tokens: int = 64,
+          device: str | torch.device = "cuda") -> dict:
+    """Characterize (τin, τout up to `char_max_tokens`), route and serve.
+    Returns {"plan", "totals", "profiles"}."""
+    profiles = characterize_fleet(archs, max_tokens=char_max_tokens, device=device)
     router = EnergyAwareRouter(profiles, zeta=zeta)
 
     spec = WorkloadSpec(n_queries=n_queries, **SERVE_WORKLOAD)

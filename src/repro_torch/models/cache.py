@@ -1,6 +1,6 @@
-"""Decode-time KV caches.
+"""Decode-time caches.
 
-Port of the attention caches of `repro.models.cache`.  `pos` is a 0-d int32
+Port of the attention, SSM and hybrid caches of `repro.models.cache`.  `pos` is a 0-d int32
 tensor on the cache's device: the absolute position of the *next* token to
 be written, so a decode loop never reads it back to the host.
 Sliding-window caches are ring buffers of size `window`; keys are stored
@@ -11,7 +11,9 @@ of the whole per-layer cache (which keeps a sharded layout elementwise
 under GSPMD).  Here `write_token` writes the one slot in place with
 `index_copy_`; the cache holds the same values afterwards, and a step
 moves one token's K/V instead of the whole cache.  The caller's cache
-tensors are therefore updated in place.
+tensors are therefore updated in place.  The recurrent states of
+`SSMCache` and `HybridCache` are likewise overwritten in place by each
+decode step.
 """
 
 from __future__ import annotations
@@ -53,6 +55,52 @@ class WindowKVCache:
         return WindowKVCache(torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros((), dtype=torch.int32, device=device))
+
+    @property
+    def window(self) -> int:
+        return self.k.shape[2]
+
+
+@dataclasses.dataclass
+class SSMCache:
+    """Mamba-2 state: conv [L, B, K-1, conv_ch], state [L, B, H, P, N] f32."""
+    conv: torch.Tensor
+    state: torch.Tensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(n_layers, batch, conv_kernel, conv_ch, nheads, headdim, state,
+             dtype, device) -> "SSMCache":
+        return SSMCache(
+            torch.zeros((n_layers, batch, conv_kernel - 1, conv_ch), dtype=dtype,
+                        device=device),
+            torch.zeros((n_layers, batch, nheads, headdim, state),
+                        dtype=torch.float32, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+
+
+@dataclasses.dataclass
+class HybridCache:
+    """RecurrentGemma: RG-LRU states lru [Lr, B, width] f32 and conv states
+    conv [Lr, B, K-1, width] of the recurrent layers; sliding-window ring
+    K/V [La, B, window, Hkv, Dh] of the attention layers."""
+    lru: torch.Tensor
+    conv: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(n_rec, n_attn, batch, width, conv_kernel, window, n_kv, head_dim,
+             dtype, device) -> "HybridCache":
+        kv = (n_attn, batch, window, n_kv, head_dim)
+        return HybridCache(
+            torch.zeros((n_rec, batch, width), dtype=torch.float32, device=device),
+            torch.zeros((n_rec, batch, conv_kernel - 1, width), dtype=dtype,
+                        device=device),
+            torch.zeros(kv, dtype=dtype, device=device),
+            torch.zeros(kv, dtype=dtype, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
 
     @property
     def window(self) -> int:

@@ -110,6 +110,14 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     @property
+    def d_inner(self) -> int:       # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
@@ -177,6 +185,12 @@ def init_params(defs: ParamTree, generator: torch.Generator,
                               device=device).mul_(d.scale).to(dtype)
         _set_path(params, path, val)
     return params
+
+
+def layer_params(tree: dict, i: int) -> dict:
+    """Layer i's slice of a layer-stacked param tree."""
+    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
 
 
 def count_params(defs: ParamTree) -> int:

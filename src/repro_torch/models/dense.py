@@ -18,6 +18,7 @@ from repro_torch.models.common import (
     ModelConfig,
     ParamDef,
     embed_tokens,
+    layer_params,
     lm_logits,
     mlp_defs,
     padded_vocab,
@@ -80,11 +81,6 @@ def head_matrix(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer i's slice of a layer-stacked param tree."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i]) for k, v in tree.items()}
-
-
 # ---------------------------------------------------------------------------
 # Attention sublayer
 # ---------------------------------------------------------------------------
@@ -130,18 +126,28 @@ def _rope_token(cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor) -> torch.T
     return rope(x[:, None], pos.expand(x.shape[0], 1), cfg.rope_theta)[:, 0]
 
 
+def attention_decode(cfg: ModelConfig, pl: dict, x: torch.Tensor,
+                     k_l: torch.Tensor, v_l: torch.Tensor, pos: torch.Tensor,
+                     slot: torch.Tensor, *, ring: bool) -> torch.Tensor:
+    """One-token attention sublayer.  x [B, d] (normed); k_l/v_l
+    [B, S, Hkv, Dh] this layer's cache, into which this token's roped K and
+    V are written at `slot` before it attends (kernel B1 on CUDA).
+    Returns y [B, d]."""
+    q, k_new, v_new = _project_qkv(cfg, pl, x)
+    cachelib.write_token(k_l, _rope_token(cfg, k_new, pos), slot)
+    cachelib.write_token(v_l, v_new, slot)
+    o = attn.decode_attention(_rope_token(cfg, q, pos), k_l, v_l, pos, ring=ring,
+                              softcap=cfg.attn_logit_softcap)
+    return _out_proj(o, pl["wo"])
+
+
 def decode_layer(cfg: ModelConfig, pl: dict, h: torch.Tensor,
                  k_l: torch.Tensor, v_l: torch.Tensor, pos: torch.Tensor,
                  slot: torch.Tensor, *, ring: bool) -> torch.Tensor:
     """One layer of a one-token pass.  h [B, d]; k_l/v_l [B, S, Hkv, Dh]
     this layer's cache, into which this token's K/V is written at `slot`."""
-    xin = rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps)
-    q, k_new, v_new = _project_qkv(cfg, pl["attn"], xin)
-    cachelib.write_token(k_l, _rope_token(cfg, k_new, pos), slot)
-    cachelib.write_token(v_l, v_new, slot)
-    o = attn.decode_attention(_rope_token(cfg, q, pos), k_l, v_l, pos, ring=ring,
-                              softcap=cfg.attn_logit_softcap)
-    h = h + _out_proj(o, pl["attn"]["wo"])
+    h = h + attention_decode(cfg, pl["attn"], rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps),
+                             k_l, v_l, pos, slot, ring=ring)
     m = swiglu(rmsnorm(h, pl["ln_mlp"]["w"], cfg.rmsnorm_eps),
                pl["mlp"]["w_gate"], pl["mlp"]["w_up"], pl["mlp"]["w_down"])
     return h + m
@@ -159,7 +165,7 @@ def forward_full(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
     h = x
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        pl = _layer(blocks, i)
+        pl = layer_params(blocks, i)
         a, k, v = attention_full(cfg, pl["attn"],
                                  rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps),
                                  q_offset=q_offset, window=window)
@@ -182,7 +188,7 @@ def decode_pass(cfg: ModelConfig, blocks: dict, x: torch.Tensor,
     slot = torch.remainder(pos, S) if ring else torch.clamp(pos, max=S - 1)
     h = x
     for i in range(cfg.n_layers):
-        h = decode_layer(cfg, _layer(blocks, i), h, k_cache[i], v_cache[i], pos,
+        h = decode_layer(cfg, layer_params(blocks, i), h, k_cache[i], v_cache[i], pos,
                          slot, ring=ring)
     return h
 

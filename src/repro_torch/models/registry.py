@@ -6,8 +6,9 @@
     cache = api.init_cache(cfg, batch_size, cache_len, device=...)
     logits, cache = api.decode_step(cfg, params, cache, {"token": ...})
 
-Port of `repro.models.registry`.  Only the dense family is ported; the
-others raise NotImplementedError naming the ROADMAP item that ports them.
+Port of `repro.models.registry`.  The dense, ssm and hybrid families are
+ported; the others raise NotImplementedError naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -18,13 +19,13 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import dense
+from repro_torch.models import dense, hybrid, ssm
 from repro_torch.models.common import ModelConfig, count_params, init_params as _init
 
-_FAMILIES = {"dense": dense}
+_FAMILIES = {"dense": dense, "ssm": ssm, "hybrid": hybrid}
 
-# families of the reference that later slices port (ROADMAP queue 1, item 2)
-_NOT_YET = ("moe", "ssm", "hybrid", "encdec", "vlm")
+# families of the reference that later slices port (ROADMAP queue 1)
+_NOT_YET = ("moe", "encdec", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +50,8 @@ def get_api(cfg_or_family: ModelConfig | str) -> ModelAPI:
               else cfg_or_family.family)
     if family in _NOT_YET:
         raise NotImplementedError(
-            f"family {family!r} is not ported to repro_torch yet: ROADMAP queue 1, "
-            f"item 2 (moe/ssm/hybrid/encdec/vlm with kernels B3 and B4)")
+            f"family {family!r} is not ported to repro_torch yet: ROADMAP queue 1 "
+            f"(moe/encdec/vlm, with fp8 caches in kernel B1)")
     if family not in _FAMILIES:
         raise KeyError(f"unknown family {family!r}; have {sorted(_FAMILIES)}")
     mod = _FAMILIES[family]

@@ -26,6 +26,21 @@ FLEET = ["llama2-7b-reduced", "llama2-13b-reduced", "llama2-70b-reduced",
 SHAPES = {"mistral-7b-reduced": (60, 8)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run torch on one CPU thread here.  At these tiny shapes its
+    intra-op threads only add overhead, and with several pytest-xdist
+    workers on one machine they oversubscribe the cores: six concurrent
+    CPU `serve()` runs took over 15 minutes with the default threads and
+    about 10 s each with one.  One thread also avoids a fault seen in the
+    first multi-threaded float32 `torch.exp` of a process (values ~1e-4
+    off, relative, in about one process in twenty)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=FLEET)
 def fleet_model(request):
     arch = request.param

@@ -1,4 +1,4 @@
-"""Kernel B1 of the PyTorch port on an NVIDIA card.
+"""Kernels B1, B3 and B4 of the PyTorch port on an NVIDIA card.
 
 Needs a CUDA device and nvcc; every test here carries the `gpu` marker and
 skips with a reason where there is no card (a CUDA kernel has no CPU
@@ -13,6 +13,15 @@ tests/test_torch_kernels.py holds the plain version on the CPU), at the
 shapes of tests/test_kernels.py::TestFlashDecode and with ring and
 softcap.  Tolerances: 1e-4 for f32 (reduction order), 2e-2 for bf16 (the
 plain version rounds the softmax weights to bf16, as the reference does).
+
+B3 (SSD chunk scan) and B4 (RG-LRU scan) are held against their plain
+versions at the shapes of mamba2-130m and recurrentgemma-9b and their
+reduced variants, ragged S and an initial state included, with the input
+scales and f32 tolerances of tests/test_kernels.py (TestSSDScan: atol 2e-4,
+rtol 1e-3; TestRGLRU: 1e-4).  B3 in bf16 (y and final state) is held
+within 2e-2 of the output's largest magnitude: the plain version rounds
+its scores and chunk states to bf16 as the reference does, the kernel
+keeps them in f32.
 """
 
 import numpy as np
@@ -21,6 +30,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attention as kda
+from repro_torch.kernels import rglru_scan as krg
+from repro_torch.kernels import ssd_scan as kss
 from repro_torch.models import get_api
 from repro_torch.serving import InferenceEngine
 
@@ -154,3 +165,122 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
             {"tokens": toks}, 8)
         np.testing.assert_array_equal(out, ref)
     assert kda.launches == before + cfg.n_layers * 8
+
+
+SSD_CASES = [               # (b, s, h, p, g, n): mamba2-130m and reduced
+    (2, 8, 24, 64, 1, 128),
+    (2, 37, 24, 64, 1, 128),
+    (4, 256, 24, 64, 1, 128),
+    (4, 300, 24, 64, 1, 128),
+    (2, 37, 32, 16, 1, 16),      # mamba2-130m-reduced
+    (2, 100, 8, 32, 2, 64),      # two groups
+]
+
+
+def ssd_inputs(b, s, h, p, g, n, dtype, seed=0):
+    """tests/test_kernels.py::TestSSDScan's scales."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    xdt = (rand(b, s, h, p) * 0.5).to(dtype)
+    dA = -(rand(b, s, h) * 0.3).abs()
+    B = (rand(b, s, g, n) * 0.5).to(dtype)
+    C = (rand(b, s, g, n) * 0.5).to(dtype)
+    h0 = rand(b, h, p, n) * 0.5
+    return xdt, dA, B, C, h0
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_matches_plain(cuda, case, dtype, with_h0):
+    xdt, dA, B, C, h0 = ssd_inputs(*case, getattr(torch, dtype), seed=case[1])
+    h0 = h0 if with_h0 else None
+    before = kss.launches
+    y, fin = kss.ssd_scan(xdt, dA, B, C, chunk=256, h0=h0)
+    assert kss.launches == before + 1
+    y_p, fin_p = kss.ssd_scan_plain(xdt, dA, B, C, chunk=256, h0=h0)
+    assert y.dtype == xdt.dtype and y.shape == xdt.shape and fin.dtype == torch.float32
+    for ours, plain in ((y, y_p), (fin, fin_p)):
+        if dtype == "float32":
+            np.testing.assert_allclose(ours.cpu().numpy(), plain.cpu().numpy(),
+                                       atol=2e-4, rtol=1e-3)
+        else:
+            err = (ours.float() - plain.float()).abs().max().item()
+            assert err <= 2e-2 * plain.float().abs().max().item(), err
+
+
+def test_ssd_scan_rejects_what_the_kernel_does_not_take(cuda):
+    xdt, dA, B, C, _ = ssd_inputs(1, 8, 2, 24, 1, 16, torch.float32)
+    with pytest.raises(ValueError, match="multiples"):
+        kss.ssd_scan(xdt, dA, B, C, chunk=8)
+    xdt, dA, B, C, _ = ssd_inputs(1, 8, 2, 16, 1, 16, torch.float32)
+    with pytest.raises(TypeError):
+        kss.ssd_scan(xdt, dA, B.bfloat16(), C, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kss.ssd_scan(xdt.transpose(1, 2).contiguous().transpose(1, 2), dA, B, C, chunk=8)
+
+
+RGLRU_CASES = [             # (B, S, W): recurrentgemma-9b, reduced, ragged
+    (2, 1, 4096), (2, 8, 4096), (2, 37, 4096), (4, 300, 4096),
+    (2, 37, 128), (3, 64, 100),
+]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_scan_matches_plain(cuda, case, with_h0):
+    """tests/test_kernels.py::TestRGLRU's scales and tolerance."""
+    Bsz, S, W = case
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    a = 0.7 + 0.299 * torch.rand((Bsz, S, W), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((Bsz, S, W), generator=gen, device="cuda")
+    h0 = torch.randn((Bsz, W), generator=gen, device="cuda") if with_h0 else None
+    before = krg.launches
+    h, last = krg.rglru_scan(a, b, h0)
+    assert krg.launches == before + 1
+    h_p, last_p = krg.rglru_scan_plain(a, b, h0)
+    close(h, h_p, 1e-4)
+    close(last, last_p, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("pos", [0, 1000, 2047, 2100])
+def test_decode_attention_head_dim_256(cuda, dtype, pos):
+    """recurrentgemma-9b's local attention: MQA, 16 query heads, a
+    2048-slot ring, head dim 256; pos past the ring's end wraps it."""
+    q, k, v = inputs(2, 16, 1, 256, 2048, getattr(torch, dtype), seed=pos)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    out = kda.decode_attention(q, k, v, p, ring=True)
+    close(out, kda.decode_attention_plain(q, k, v, p, ring=True), TOL[dtype])
+    close(out, oracle(q, k, v, pos, ring=True), TOL[dtype])
+
+
+@pytest.mark.parametrize("arch,expect", [     # launches of (B3, B4, B1)
+    ("mamba2-130m-reduced", (2, 0, 0)),          # 2 SSM layers x 1 prefill
+    ("recurrentgemma-9b-reduced", (0, 4, 8)),    # 4 rec layers; 1 attn x 8 steps
+])
+def test_scan_models_on_the_card_match_the_cpu(cuda, arch, expect):
+    """Reduced f32 ssm and hybrid models: greedy tokens through the kernels
+    on the card equal the plain path's on the CPU, in both KV modes; the
+    KV-on run launches B3 once per SSM layer, B4 once per recurrent layer
+    and B1 once per attention layer and step."""
+    cfg = get_config(arch)
+    cpu = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict) else v.to(cuda) for k, v in tree.items()}
+
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 37)).astype(np.int32)
+    ref, _ = InferenceEngine(cfg, cpu, kv_cache=True, device="cpu").generate({"tokens": toks}, 8)
+    counts = (kss.launches, krg.launches, kda.launches)
+    out, _ = InferenceEngine(cfg, move(cpu), kv_cache=True, device=cuda).generate(
+        {"tokens": toks}, 8)
+    np.testing.assert_array_equal(out, ref)
+    assert (kss.launches - counts[0], krg.launches - counts[1],
+            kda.launches - counts[2]) == expect
+    out, _ = InferenceEngine(cfg, move(cpu), kv_cache=False, device=cuda).generate(
+        {"tokens": toks}, 8)
+    np.testing.assert_array_equal(out, ref)

@@ -21,13 +21,28 @@ from repro.models import attention as jattn
 from repro.models import cache as jcache
 from repro.models import get_api as jget_api
 import repro_torch
-from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ZOO, get_config
+from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ZOO, PORTED_ASSIGNED, get_config
 from repro_torch.models import attention, cache, common, get_api
 from repro_torch.weights import from_jax_params
 
 FLEET = ["llama2-7b-reduced", "llama2-13b-reduced", "llama2-70b-reduced",
          "mistral-7b-reduced"]
 TOL = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run torch on one CPU thread here.  At these tiny shapes its
+    intra-op threads only add overhead, and with several pytest-xdist
+    workers on one machine they oversubscribe the cores: six concurrent
+    CPU `serve()` runs took over 15 minutes with the default threads and
+    about 10 s each with one.  One thread also avoids a fault seen in the
+    first multi-threaded float32 `torch.exp` of a process (values ~1e-4
+    off, relative, in about one process in twenty)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a, dtype=torch.float32):
@@ -60,7 +75,11 @@ class TestConfigs:
     def test_unported_families_and_archs_raise(self):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_api(PAPER_ZOO["mixtral-8x7b"])
+        assert set(PORTED_ASSIGNED) == {"mamba2-130m", "recurrentgemma-9b"}
         for arch in ASSIGNED_ARCHS:
+            if arch in PORTED_ASSIGNED:
+                assert get_config(arch).name == arch
+                continue
             with pytest.raises(KeyError, match="not yet ported"):
                 get_config(arch)
 

@@ -30,6 +30,21 @@ from repro_torch.serving import EnergyAwareRouter, Request
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run torch on one CPU thread here.  At these tiny shapes its
+    intra-op threads only add overhead, and with several pytest-xdist
+    workers on one machine they oversubscribe the cores: six concurrent
+    CPU `serve()` runs took over 15 minutes with the default threads and
+    about 10 s each with one.  One thread also avoids a fault seen in the
+    first multi-threaded float32 `torch.exp` of a process (values ~1e-4
+    off, relative, in about one process in twenty)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class TestWorkloads:
     @pytest.mark.parametrize("kw", [dict(), dict(n_queries=24, max_in=48, max_out=32,
                                                  in_log_mean=2.8, out_log_mean=2.5),
