@@ -5,18 +5,28 @@
 
 Phases, each of which must pass:
   1. device   the card's name and count, and `nvidia-smi`'s name and power limit;
-  2. build    every CUDA kernel from src/repro_torch/kernels/csrc (B1, B3,
-              B4), with the compiler's register/shared-memory report;
+  2. build    every CUDA kernel from src/repro_torch/kernels/csrc (B1, B2,
+              B3, B4), with the compiler's register/shared-memory report;
   3. check    each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: B1 (f32 within 1e-4, bf16 within 2e-2)
               at the llama2 shapes and recurrentgemma-9b's head dim 256
-              ring; B3 at mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16
-              within 2e-2 of the output's largest magnitude); B4 at
-              recurrentgemma-9b's (1e-4);
+              ring; B2 for every family branch and both decode modes at
+              m = 1,000,037 (f32 rtol 1e-5, f64 rtol 1e-12); B3 at
+              mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16 within 2e-2 of
+              the output's largest magnitude); B4 at recurrentgemma-9b's
+              (1e-4);
   4. timing   each kernel, its plain version and, for B1, a library call
               (CUDA events, L2 flushed between launches), beside the bound
-              for its bytes or operations;
-  5. serve    the paper's serve path through `repro_torch.launch.serve.serve`
+              for its bytes or operations; `simulate_batch` queries/s;
+  5. analytic the paper's §6.3 case study through the port's host modules
+              (analytic campaign, Eq. 6/7 fits, ζ-sweep, baselines), then
+              `cost_matrices` on the card over the llama2-7b/13b/70b fleet
+              in both KV modes at batch 32, on the 500 Alpaca-like queries
+              and on 1,000,000 synthetic ones, held within 1e-9 of the
+              numpy closed form; kernel B2's launches must equal the
+              pass-cost evaluations made (1 + 3 per decode segment per
+              simulator and call);
+  6. serve    the paper's serve path through `repro_torch.launch.serve.serve`
               twice, each at full width with random bf16 weights drawn on
               the card: characterize with the KV cache off, fit, route 24
               queries, serve with the KV cache on.  First llama2-7b and
@@ -27,7 +37,7 @@ Phases, each of which must pass:
               recurrent layer, and every decode step B1 once per attention
               layer; one KV-on generate of each outside the router makes
               every kernel launch whatever the routing;
-  6. outputs  reduced models on the card (through the kernels) against the
+  7. outputs  reduced models on the card (through the kernels) against the
               same models on the CPU (plain versions), and finite full-width
               decode logits that agree with a full re-forward; then the
               device's busy share of full-width decode steps and prefills
@@ -52,11 +62,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA-core f32, bf16 tensor
+# CUDA-core f32, bf16 tensor; f64 outside the tensor cores (H100 SXM data sheet)
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 34e12}
 SERVE_ARCHS = ["llama2-7b", "llama2-13b"]
 SERVE_CHAR_MAX_TOKENS = 32      # the llama2 path's characterization grid top
 SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
 SERVE_QUERIES = 24
+# one config per family branch of the pass-cost surface
+COST_ARCHS = ["llama2-7b", "mixtral-8x7b", "mistral-7b", "mamba2-130m", "recurrentgemma-9b",
+              "deepseek-v3-671b", "seamless-m4t-large-v2", "internvl2-2b"]
+ANALYTIC_BATCH = 32                 # the paper's batch
+SYNTHETIC_QUERIES = 1_000_000
 
 
 class PhaseError(RuntimeError):
@@ -694,6 +710,192 @@ def check_scan_outputs(torch, serve_mod) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Kernel B2 and the analytic path
+# ---------------------------------------------------------------------------
+
+
+def cost_inputs(torch, m, dtype, seed):
+    """new tokens and context in [1, 4096] (context >= new tokens) and a
+    per-query batch in [1, 64]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nt = torch.randint(1, 4097, (m,), generator=g, device="cuda").to(dtype)
+    ctx = nt + torch.randint(0, 4097, (m,), generator=g, device="cuda").to(dtype)
+    return nt, ctx, torch.randint(1, 65, (m,), generator=g, device="cuda").to(dtype)
+
+
+def check_cost_batch(torch, kcb) -> dict:
+    """B2 against its plain version for every family branch and both decode
+    modes at m = 1,000,037: f32 within rtol 1e-5 (the reference's gate for
+    the TPU kernel), f64 within 1e-12.  Returns dtype -> worst max_abs_err."""
+    from repro_torch.configs import get_config
+    worst = collections.defaultdict(float)
+    misses = []
+    for i, arch in enumerate(COST_ARCHS):
+        cfg = get_config(arch)
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            nt, ctx, bt = cost_inputs(torch, 1_000_037, dtype, seed=i)
+            name = str(dtype).removeprefix("torch.")
+            for decode in (False, True):
+                ours = kcb.pass_surface(cfg, nt, ctx, bt, decode=decode)
+                plain = kcb.pass_surface_plain(cfg, nt, ctx, bt, decode=decode)
+                err = max((a - b).abs().max().item() for a, b in zip(ours, plain))
+                rel = max(((a - b).abs() / b.abs()).max().item() for a, b in zip(ours, plain))
+                same = all(torch.equal(a, b) for a, b in zip(ours, plain))
+                worst[name] = max(worst[name], err)
+                label = f"{arch} {name} decode={decode}"
+                print(f"[check] B2 {label}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+                      f"bit-identical={same} rtol={rtol:g} {'ok' if rel <= rtol else 'MISS'}")
+                if not rel <= rtol:
+                    misses.append(label)
+    torch.cuda.synchronize()
+    check(not misses, f"B2 disagrees with its plain version: {misses}")
+    return dict(worst)
+
+
+def cost_ops_per_query(cfg, decode) -> int:
+    """Products, sums and minima B2 does for one query of this config,
+    counted from the kernel's branches."""
+    clamp = cfg.local_window if cfg.family == "hybrid" else cfg.window
+    ops = 2 + bool(clamp)                       # tokens, 2 N tokens, clamp
+    ops += 4 if cfg.family == "ssm" else 7 + 7 * (cfg.family == "encdec")
+    ops += 4 * (cfg.family == "moe") + (6 if cfg.family == "moe" else 1) + 4
+    return ops + (3 + 2 * (cfg.family == "ssm") if decode else 0)
+
+
+def time_cost_batch(torch, kcb) -> dict:
+    """B2 at m = 1,000,000 (llama2-70b, decode probe), f32 and f64, beside
+    its plain version and the bound for 3 arrays read and 2 written.  No
+    single PyTorch call computes the surface: no library time."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama2-70b")
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    m = 1_000_000
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        nt, ctx, bt = cost_inputs(torch, m, dtype, seed=11)
+        t = {"ms": time_ms(torch, lambda: kcb.pass_surface(cfg, nt, ctx, bt, decode=True), flush),
+             "plain_ms": time_ms(torch, lambda: kcb.pass_surface_plain(cfg, nt, ctx, bt,
+                                                                        decode=True), flush),
+             "library_ms": None}
+        size = 4 if dtype == torch.float32 else 8
+        t_bytes = 5 * m * size / HBM_BYTES_PER_S
+        t_ops = cost_ops_per_query(cfg, True) * m / PEAK_OPS[name]
+        t["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        t["shape"] = f"m={m} {name} llama2-70b decode=True"
+        print(f"[time] B2 {name} ({t['shape']}): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound")
+        out[f"B2 {name}"] = t
+    return out
+
+
+def synthetic_queries(m):
+    """benchmarks/perf_suite.py's synthetic (τin, τout) draws."""
+    import numpy as np
+    rng = np.random.default_rng(m)
+    return rng.integers(1, 4096, m), rng.integers(1, 4096, m)
+
+
+def time_simulate_batch(torch, kcb) -> None:
+    """simulate_batch over 10^6 synthetic queries: wall time and queries/s
+    (host clock, numpy in and out), the device's busy share of it and B2's
+    share of that (profiler)."""
+    from repro_torch.configs import PAPER_ZOO
+    from repro_torch.energy import AnalyticLLMSimulator
+    tin, tout = synthetic_queries(SYNTHETIC_QUERIES)
+    for kv in (True, False):
+        sim = AnalyticLLMSimulator(PAPER_ZOO["llama2-7b"], batch=ANALYTIC_BATCH, kv_cache=kv,
+                                   noise_sigma=0.0)
+        wall_ms, events, why = _profile(torch, lambda: kcb.simulate_batch(sim, tin, tout), 3)
+        label = f"simulate_batch llama2-7b KV-{'on' if kv else 'off'} m={len(tin)}"
+        print(f"[time] {label}: {wall_ms:.2f} ms per call, {len(tin) / wall_ms * 1e3:.4g} "
+              f"queries/s (host clock, numpy in and out)")
+        _breakdown(label, wall_ms, events, why, 3, ("cost_batch_kernel",), "B2")
+
+
+def run_analytic(torch, kcb) -> int:
+    """The §6.3 case study on the host, then cost_matrices on the card over
+    the same fleet.  Returns B2's launches over the card part."""
+    import numpy as np
+    from repro_torch.configs import CASE_STUDY_GAMMA, CASE_STUDY_MODELS, PAPER_ZOO, TABLE1
+    from repro_torch.core import characterize, scheduler
+    from repro_torch.data import alpaca_like_workload
+    from repro_torch.energy import AnalyticLLMSimulator
+
+    t0 = time.perf_counter()
+    settings = characterize.CampaignSettings(grid_range=(8, 2048), max_trials=2, min_trials=2,
+                                             vary_input_range=(8, 8),
+                                             vary_output_range=(8, 8), seed=9)
+    profiles = []
+    for name in CASE_STUDY_MODELS:
+        sim = AnalyticLLMSimulator(PAPER_ZOO[name], kv_cache=False, seed=13)
+        trials = characterize.run_campaign(name, sim.measure_per_query, settings)
+        profiles.append(characterize.fit_profile_from_trials(name, TABLE1[name]["a_k"], trials))
+    queries = alpaca_like_workload()
+    zetas = np.round(np.linspace(0.0, 1.0, 11), 2)
+    sweep = scheduler.zeta_sweep(profiles, queries, zetas)
+    capped = scheduler.zeta_sweep(profiles, queries, [0.0, 0.5, 1.0], gamma=CASE_STUDY_GAMMA)
+    baselines = {"round_robin": scheduler.schedule_round_robin(profiles, queries),
+                 "random": scheduler.schedule_random(profiles, queries, seed=4)}
+    for p in profiles:
+        print(f"[analytic] {p.name}: energy R2={p.energy.r_squared} "
+              f"runtime R2={p.runtime.r_squared}")
+        check(0.9 < p.energy.r_squared <= 1.0 and 0.9 < p.runtime.r_squared <= 1.0,
+              f"{p.name}: the Eq. 6/7 fit is poor")
+    for z, asg in zip(zetas, sweep):
+        print(f"[analytic] zeta={z:.1f}: E={asg.total_energy_j} J "
+              f"runtime={asg.total_runtime_s} s mean_A_K={asg.mean_accuracy_ak} "
+              f"counts={asg.counts().tolist()}")
+    for z, asg in zip([0.0, 0.5, 1.0], capped):
+        print(f"[analytic] gamma-capped zeta={z:.1f}: E={asg.total_energy_j} J "
+              f"counts={asg.counts().tolist()}")
+    for name, asg in baselines.items():
+        print(f"[analytic] baseline {name}: E={asg.total_energy_j} J")
+    energies = [a.total_energy_j for a in sweep]
+    check(all(b <= a + 1e-6 for a, b in zip(energies, energies[1:])),
+          "energy does not fall monotonically as zeta -> 1")
+    print(f"[analytic] case study on the host s={time.perf_counter() - t0}")
+
+    alpaca = (np.array([q[0] for q in queries]), np.array([q[1] for q in queries]))
+    synth = synthetic_queries(SYNTHETIC_QUERIES)
+    sample = np.random.default_rng(0).choice(SYNTHETIC_QUERIES, 2000, replace=False)
+    kcb.launches = 0
+    expected = 0
+    worst = 0.0
+    for kv in (True, False):
+        sims = [AnalyticLLMSimulator(PAPER_ZOO[n], batch=ANALYTIC_BATCH, kv_cache=kv,
+                                     noise_sigma=0.0) for n in CASE_STUDY_MODELS]
+        for label, (tin, tout), idx in (("alpaca 500", alpaca, np.arange(len(alpaca[0]))),
+                                        ("synthetic 1M", synth, sample)):
+            t0 = time.perf_counter()
+            E, R = kcb.cost_matrices(sims, tin, tout)
+            dt = time.perf_counter() - t0
+            expected += sum(kcb.surface_calls(s.cfg, kv) for s in sims)
+            check(E.shape == R.shape == (len(tin), len(sims)) and np.isfinite(E).all()
+                  and np.isfinite(R).all() and (E > 0).all() and (R > 0).all(),
+                  f"cost_matrices {label}: bad shape or values")
+            rel = 0.0
+            for j, sim in enumerate(sims):
+                pbs = [sim.simulate(int(tin[i]), int(tout[i])) for i in idx]
+                for got, want in ((E[idx, j], [pb.energy_j for pb in pbs]),
+                                  (R[idx, j], [pb.runtime_s for pb in pbs])):
+                    rel = max(rel, float(np.max(np.abs(got - want) / np.abs(want))))
+            worst = max(worst, rel)
+            print(f"[analytic] cost_matrices KV-{'on' if kv else 'off'} {label} "
+                  f"{E.shape}: {dt * 1e3:.1f} ms; max rel err vs numpy simulate over "
+                  f"{len(idx)} queries x {len(sims)} models = {rel:.3e} (tol 1e-9) "
+                  f"{'ok' if rel <= 1e-9 else 'MISS'}")
+    launches = kcb.launches
+    print(f"[analytic] B2 launches={launches} expected={expected} "
+          f"(1 + 3 x decode segments, per simulator and call)")
+    check(worst <= 1e-9, f"cost_matrices off the numpy closed form by {worst:.3e}")
+    check(launches == expected, f"B2 launched {launches} times, expected {expected}")
+    return launches
+
+
 def _map(tree, fn):
     return {k: (_map(v, fn) if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
 
@@ -710,6 +912,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
+    from repro_torch.kernels import cost_batch as kcb
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels import rglru_scan as krg
     from repro_torch.kernels import ssd_scan as kss
@@ -731,8 +934,14 @@ def main() -> int:
     shapes = decode_shapes(torch, serve_mod)
     errs = check_decode(torch, kda, shapes)
     scan_errs = check_scans(torch, kss, krg)
+    cost_errs = check_cost_batch(torch, kcb)
     timing = time_decode(torch, kda, shapes)
     timing.update(time_scans(torch, kss, krg))
+    timing.update(time_cost_batch(torch, kcb))
+    time_simulate_batch(torch, kcb)
+    t0 = time.perf_counter()
+    analytic_launches = run_analytic(torch, kcb)
+    print(f"[phase] analytic path s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     launches = run_serve(torch, kda, serve_mod)
     check_outputs(torch, serve_mod)
@@ -755,6 +964,9 @@ def main() -> int:
         entry("decode_attention (B1) at head dim 256, recurrentgemma-9b path",
               "decode_attention.cu", b1, scan_launches["B1"],
               errs["recurrentgemma-9b ring"], "recurrentgemma-9b ring"),
+        entry("pass_costs (B2, analytic pass-cost surface)", "cost_batch.cu",
+              "src/repro/kernels/cost_batch.py:347", analytic_launches,
+              cost_errs["float64"], "B2 float64"),
         entry("ssd_scan (B3, Mamba-2 SSD chunk scan)", "ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:73", scan_launches["B3"],
               scan_errs["B3 bfloat16"], "B3 characterize"),

@@ -1,13 +1,14 @@
-"""Config registry: the paper's 7-model zoo and the ported assigned
-architectures by --arch id, plus the reduced smoke variants
-('<id>-reduced').
+"""Config registry: the repo's ten assigned architectures and the paper's
+7-model zoo by --arch id, plus the reduced smoke variants ('<id>-reduced').
 
-Of the repo's ten assigned architectures, mamba2-130m (ssm) and
-recurrentgemma-9b (hybrid) are ported; asking for another raises a
-KeyError that says so (they arrive with their model families, ROADMAP
-queue 1)."""
+Port of `repro.configs` (without `configs/shapes.py`, which comes with the
+launch tooling, ROADMAP queue 1).  Every config resolves here; whether
+its family can run a forward pass is the registry's business
+(`repro_torch.models.registry`)."""
 
 from __future__ import annotations
+
+import importlib
 
 from repro_torch.configs.paper_zoo import (  # noqa: F401
     CASE_STUDY_GAMMA,
@@ -15,32 +16,39 @@ from repro_torch.configs.paper_zoo import (  # noqa: F401
     PAPER_ZOO,
     TABLE1,
 )
-from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M
-from repro_torch.configs.recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
 from repro_torch.configs.reduced import reduce_config  # noqa: F401
 from repro_torch.models.common import ModelConfig
 
-ASSIGNED_ARCHS = (
-    "internvl2-2b", "granite-moe-3b-a800m", "mamba2-130m", "qwen2.5-14b",
-    "deepseek-67b", "seamless-m4t-large-v2", "llama3.2-3b",
-    "deepseek-v3-671b", "recurrentgemma-9b", "qwen3-1.7b",
-)
+# arch id -> module (one file per assigned architecture)
+_ASSIGNED_MODULES = {
+    "internvl2-2b": "internvl2_2b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "mamba2-130m": "mamba2_130m",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "deepseek-67b": "deepseek_67b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "llama3.2-3b": "llama3_2_3b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "qwen3-1.7b": "qwen3_1_7b",
+}
 
-# the assigned archs whose family is ported
-PORTED_ASSIGNED = {c.name: c for c in (MAMBA2_130M, RECURRENTGEMMA_9B)}
+ASSIGNED_ARCHS = tuple(_ASSIGNED_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    """Resolve an --arch id (paper zoo, ported assigned arch, or
-    '<id>-reduced')."""
+    """Resolve an --arch id (assigned archs, paper zoo, or '<id>-reduced')."""
     if arch.endswith("-reduced"):
         return reduce_config(get_config(arch[: -len("-reduced")]))
+    if arch in _ASSIGNED_MODULES:
+        mod = importlib.import_module(f"repro_torch.configs.{_ASSIGNED_MODULES[arch]}")
+        return mod.CONFIG
     if arch in PAPER_ZOO:
         return PAPER_ZOO[arch]
-    if arch in PORTED_ASSIGNED:
-        return PORTED_ASSIGNED[arch]
-    if arch in ASSIGNED_ARCHS:
-        raise KeyError(
-            f"arch {arch!r} is not yet ported to repro_torch; it comes with "
-            f"its model family (ROADMAP queue 1)")
-    raise KeyError(f"unknown arch {arch!r}; paper zoo={sorted(PAPER_ZOO)}")
+    raise KeyError(
+        f"unknown arch {arch!r}; assigned={sorted(_ASSIGNED_MODULES)}, "
+        f"paper zoo={sorted(PAPER_ZOO)}")
+
+
+def list_archs() -> list[str]:
+    return sorted(_ASSIGNED_MODULES) + sorted(PAPER_ZOO)

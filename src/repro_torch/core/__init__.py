@@ -1,6 +1,6 @@
 """Core contribution of the paper: workload-based energy/runtime models,
 the statistics pipeline behind them, and the offline energy-optimal
-scheduler (the ζ-sweep engine, `core/sweep.py`, is not ported yet)."""
+scheduler with its ζ-sweep engine."""
 
 from repro_torch.core.energy_model import (  # noqa: F401
     AccuracyModel,
@@ -23,4 +23,10 @@ from repro_torch.core.scheduler import (  # noqa: F401
     schedule_round_robin,
     schedule_single_model,
     zeta_sweep,
+)
+from repro_torch.core.sweep import (  # noqa: F401
+    IncrementalScheduler,
+    ParetoFrontier,
+    frontier_breakpoints,
+    pareto_frontier,
 )

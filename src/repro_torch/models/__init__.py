@@ -1,4 +1,6 @@
-"""Model zoo behind one functional API (dense, ssm and hybrid families ported so far)."""
+"""Model zoo: six architecture families behind one functional API (the
+moe, encdec and vlm families define their parameters; their forward
+passes are not ported yet)."""
 
 from repro_torch.models.common import ModelConfig  # noqa: F401
-from repro_torch.models.registry import ModelAPI, get_api  # noqa: F401
+from repro_torch.models.registry import ModelAPI, active_params, get_api  # noqa: F401

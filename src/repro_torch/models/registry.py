@@ -1,4 +1,4 @@
-"""Family dispatch: one uniform API over the ported architecture families.
+"""Family dispatch: one uniform API over all six architecture families.
 
     api = get_api(cfg)
     params = api.init_params(cfg, generator, device)
@@ -6,9 +6,12 @@
     cache = api.init_cache(cfg, batch_size, cache_len, device=...)
     logits, cache = api.decode_step(cfg, params, cache, {"token": ...})
 
-Port of `repro.models.registry`.  The dense, ssm and hybrid families are
-ported; the others raise NotImplementedError naming the ROADMAP item that
-ports them.
+Port of `repro.models.registry`.  Every family has its parameter
+definitions, so `count_params` and `active_params` work for all six (the
+analytic cost model needs them).  The dense, ssm and hybrid families run;
+the moe, encdec and vlm forward passes are not ported yet, and their
+`prefill`, `init_cache` and `decode_step` raise NotImplementedError
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -19,13 +22,26 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import dense, hybrid, ssm
+from repro_torch.models import dense, encdec, hybrid, moe, ssm, vlm
 from repro_torch.models.common import ModelConfig, count_params, init_params as _init
 
-_FAMILIES = {"dense": dense, "ssm": ssm, "hybrid": hybrid}
+_FAMILIES = {
+    "dense": dense,
+    "moe": moe,
+    "ssm": ssm,
+    "hybrid": hybrid,
+    "encdec": encdec,
+    "vlm": vlm,
+}
 
-# families of the reference that later slices port (ROADMAP queue 1)
-_NOT_YET = ("moe", "encdec", "vlm")
+
+def _not_ported(family: str, what: str) -> Callable:
+    def call(*args, **kwargs):
+        raise NotImplementedError(
+            f"the {family} family's {what} is not ported to repro_torch yet: "
+            f"ROADMAP queue 1 (moe/encdec/vlm forward passes, with fp8 caches "
+            f"in kernel B1)")
+    return call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,24 +57,40 @@ class ModelAPI:
         return _init(self.param_defs(cfg), generator, cfg.dtype, device)
 
     def count_params(self, cfg: ModelConfig) -> int:
-        return count_params(self.param_defs(cfg))
+        return _count_params_cached(cfg)
 
 
 @functools.lru_cache(maxsize=64)
 def get_api(cfg_or_family: ModelConfig | str) -> ModelAPI:
     family = (cfg_or_family if isinstance(cfg_or_family, str)
               else cfg_or_family.family)
-    if family in _NOT_YET:
-        raise NotImplementedError(
-            f"family {family!r} is not ported to repro_torch yet: ROADMAP queue 1 "
-            f"(moe/encdec/vlm, with fp8 caches in kernel B1)")
     if family not in _FAMILIES:
         raise KeyError(f"unknown family {family!r}; have {sorted(_FAMILIES)}")
     mod = _FAMILIES[family]
     return ModelAPI(
         family=family,
         param_defs=mod.param_defs,
-        prefill=mod.prefill,
-        init_cache=mod.init_cache,
-        decode_step=mod.decode_step,
+        **{what: getattr(mod, what, None) or _not_ported(family, what)
+           for what in ("prefill", "init_cache", "decode_step")},
     )
+
+
+@functools.lru_cache(maxsize=256)
+def _count_params_cached(cfg: ModelConfig) -> int:
+    return count_params(_FAMILIES[cfg.family].param_defs(cfg))
+
+
+@functools.lru_cache(maxsize=256)
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: shared + top-k routed experts +
+    attention/embedding), for MODEL_FLOPS = 2·N_active·D."""
+    api = get_api(cfg)
+    total = api.count_params(cfg)
+    if cfg.family != "moe" or not cfg.n_experts:
+        return total
+    de = cfg.d_expert or cfg.d_ff
+    per_expert = 3 * cfg.d_model * de
+    nm = cfg.n_layers - cfg.n_dense_layers
+    routed_total = nm * cfg.n_experts * per_expert
+    routed_active = nm * cfg.top_k * per_expert
+    return total - routed_total + routed_active

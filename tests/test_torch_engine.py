@@ -21,7 +21,10 @@ from repro_torch.serving import InferenceEngine, Sampler, measure_fn
 from repro_torch.weights import from_jax_params
 
 FLEET = ["llama2-7b-reduced", "llama2-13b-reduced", "llama2-70b-reduced",
-         "mistral-7b-reduced"]
+         "mistral-7b-reduced",
+         # assigned dense archs: QKV bias (qwen2.5), qk-norm (qwen3)
+         "qwen2.5-14b-reduced", "qwen3-1.7b-reduced", "llama3.2-3b-reduced",
+         "deepseek-67b-reduced"]
 # (prompt length, new tokens): mistral's prompt runs past its 64-slot ring
 SHAPES = {"mistral-7b-reduced": (60, 8)}
 

@@ -1,4 +1,4 @@
-"""Kernels B1, B3 and B4 of the PyTorch port on an NVIDIA card.
+"""Kernels B1, B2, B3 and B4 of the PyTorch port on an NVIDIA card.
 
 Needs a CUDA device and nvcc; every test here carries the `gpu` marker and
 skips with a reason where there is no card (a CUDA kernel has no CPU
@@ -22,6 +22,11 @@ rtol 1e-3; TestRGLRU: 1e-4).  B3 in bf16 (y and final state) is held
 within 2e-2 of the output's largest magnitude: the plain version rounds
 its scores and chunk states to bf16 as the reference does, the kernel
 keeps them in f32.
+
+B2 (the analytic pass-cost surface) is held against its plain version on
+the card for the eight family branches, at rtol 1e-5 in float32 (the
+reference's gate for the TPU kernel) and 1e-12 in float64, and
+`simulate_batch` on the card within 1e-9 relative of the numpy closed form.
 """
 
 import numpy as np
@@ -29,6 +34,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.energy.simulator import AnalyticLLMSimulator
+from repro_torch.kernels import cost_batch as kcb
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import rglru_scan as krg
 from repro_torch.kernels import ssd_scan as kss
@@ -284,3 +291,67 @@ def test_scan_models_on_the_card_match_the_cpu(cuda, arch, expect):
     out, _ = InferenceEngine(cfg, move(cpu), kv_cache=False, device=cuda).generate(
         {"tokens": toks}, 8)
     np.testing.assert_array_equal(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# B2: the analytic pass-cost surface, and simulate_batch through it
+# ---------------------------------------------------------------------------
+
+COST_ARCHS = ["llama2-7b", "mixtral-8x7b", "mistral-7b", "mamba2-130m", "recurrentgemma-9b",
+              "deepseek-v3-671b", "seamless-m4t-large-v2", "internvl2-2b"]
+TIN = np.array([1, 2, 8, 100, 512, 3000, 4095, 4096, 5000, 64])
+TOUT = np.array([1, 3, 100, 4096, 512, 2000, 2, 1, 0, 300])
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("float64", 1e-12)])
+@pytest.mark.parametrize("decode", [False, True])
+@pytest.mark.parametrize("arch", COST_ARCHS)
+def test_cost_batch_matches_plain(cuda, arch, decode, dtype, rtol):
+    """B2 against its plain version on the card, m = 10,037 (not a multiple
+    of a block), a scalar batch broadcast and a per-query one."""
+    cfg = get_config(arch)
+    td = getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    nt = torch.as_tensor(rng.integers(1, 4096, 10_037), dtype=td, device=cuda)
+    ctx = nt + torch.as_tensor(rng.integers(0, 4096, 10_037), dtype=td, device=cuda)
+    for bt in (torch.tensor(8.0, dtype=td, device=cuda),
+               torch.as_tensor(rng.integers(1, 64, 10_037), dtype=td, device=cuda)):
+        for iw in (True, False):
+            before = kcb.launches
+            f, b = kcb.pass_surface(cfg, nt, ctx, bt, include_weights=iw, decode=decode)
+            assert kcb.launches == before + 1 and f.dtype == td and f.shape == nt.shape
+            pf, pb = kcb.pass_surface_plain(cfg, nt, ctx, bt, include_weights=iw, decode=decode)
+            torch.testing.assert_close(f, pf, rtol=rtol, atol=0)
+            torch.testing.assert_close(b, pb, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("kv", [True, False])
+@pytest.mark.parametrize("arch", COST_ARCHS)
+def test_simulate_batch_on_the_card(cuda, arch, kv):
+    """Within 1e-9 relative of the numpy closed form, with one B2 launch per
+    pass-cost evaluation."""
+    sim = AnalyticLLMSimulator(get_config(arch), batch=4, kv_cache=kv, noise_sigma=0.0)
+    before = kcb.launches
+    e, r = kcb.simulate_batch(sim, TIN, TOUT)
+    assert kcb.launches - before == kcb.surface_calls(sim.cfg, kv)
+    pbs = [sim.simulate(int(a), int(b)) for a, b in zip(TIN, TOUT)]
+    np.testing.assert_allclose(e, [pb.energy_j for pb in pbs], rtol=1e-9, atol=0)
+    np.testing.assert_allclose(r, [pb.runtime_s for pb in pbs], rtol=1e-9, atol=0)
+    E, _ = kcb.cost_matrices([sim], TIN, TOUT, per_query=True)
+    np.testing.assert_allclose(E[:, 0], e / sim.batch, rtol=1e-12, atol=0)
+
+
+def test_cost_batch_rejects_what_the_kernel_does_not_take(cuda):
+    cfg = get_config("llama2-7b")
+    x = torch.ones(64, device=cuda)
+    with pytest.raises(TypeError):
+        kcb.pass_surface(cfg, x.half(), x.half(), x.half())
+    with pytest.raises(TypeError):
+        kcb.pass_surface(cfg, x, x, x.double())
+    with pytest.raises(ValueError):
+        kcb.pass_surface(cfg, x, x, torch.tensor(4.0))
+    f, b = kcb.pass_costs_kernel(cfg, np.arange(1.0, 38.0), np.arange(1.0, 38.0), 4.0)
+    pf, pb = kcb.pass_costs_kernel(cfg, np.arange(1.0, 38.0), np.arange(1.0, 38.0), 4.0,
+                                   device="cpu")
+    np.testing.assert_allclose(f, pf, rtol=1e-5)
+    np.testing.assert_allclose(b, pb, rtol=1e-5)

@@ -21,12 +21,15 @@ from repro.models import attention as jattn
 from repro.models import cache as jcache
 from repro.models import get_api as jget_api
 import repro_torch
-from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ZOO, PORTED_ASSIGNED, get_config
+from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ZOO, get_config
 from repro_torch.models import attention, cache, common, get_api
 from repro_torch.weights import from_jax_params
 
 FLEET = ["llama2-7b-reduced", "llama2-13b-reduced", "llama2-70b-reduced",
-         "mistral-7b-reduced"]
+         "mistral-7b-reduced",
+         # assigned dense archs: QKV bias (qwen2.5), qk-norm (qwen3)
+         "qwen2.5-14b-reduced", "qwen3-1.7b-reduced", "llama3.2-3b-reduced",
+         "deepseek-67b-reduced"]
 TOL = 1e-4
 
 
@@ -73,15 +76,26 @@ class TestConfigs:
         assert get_api(get_config(arch)).count_params(get_config(arch)) == ref
 
     def test_unported_families_and_archs_raise(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_api(PAPER_ZOO["mixtral-8x7b"])
-        assert set(PORTED_ASSIGNED) == {"mamba2-130m", "recurrentgemma-9b"}
+        """Every assigned arch resolves; the moe, encdec and vlm families
+        count their parameters as the reference does, and their forward
+        passes raise NotImplementedError naming the ROADMAP."""
         for arch in ASSIGNED_ARCHS:
-            if arch in PORTED_ASSIGNED:
-                assert get_config(arch).name == arch
-                continue
-            with pytest.raises(KeyError, match="not yet ported"):
-                get_config(arch)
+            assert get_config(arch).name == arch
+            assert get_config(arch + "-reduced").family == get_config(arch).family
+        for arch in ("mixtral-8x7b", "deepseek-v3-671b", "seamless-m4t-large-v2",
+                     "internvl2-2b"):
+            cfg, jcfg = get_config(arch), jget_config(arch)
+            api = get_api(cfg)
+            assert api.count_params(cfg) == jget_api(jcfg).count_params(jcfg)
+            for call in (lambda: api.prefill(cfg, {}, {"tokens": None}, cache_len=8),
+                         lambda: api.decode_step(cfg, {}, None, {"token": None}),
+                         lambda: api.init_cache(cfg, 1, 8, device="cpu")):
+                with pytest.raises(NotImplementedError, match="ROADMAP"):
+                    call()
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                get_api(cfg.family).prefill(cfg, {}, {})
+        with pytest.raises(KeyError, match="unknown arch"):
+            get_config("gpt-5")
 
     def test_dtypes_are_torch(self):
         assert get_config("llama2-7b").dtype == torch.bfloat16
