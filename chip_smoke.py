@@ -14,10 +14,14 @@ Phases, each of which must pass:
               m = 1,000,037 (f32 rtol 1e-5, f64 rtol 1e-12); B3 at
               mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16 within 2e-2 of
               the output's largest magnitude); B4 at recurrentgemma-9b's
-              (1e-4);
+              (1e-4); B3 and B4 also at the edges of their designs (chunk
+              and tile boundaries, state sizes 16..256, W % 4 != 0);
   4. timing   each kernel, its plain version and, for B1, a library call
               (CUDA events, L2 flushed between launches), beside the bound
-              for its bytes or operations; `simulate_batch` queries/s;
+              for its bytes or operations; the timing's floor, a streaming
+              yardstick for B4 and B3's time per chunk, and B3, B4, the
+              floor and the yardstick back to back with the L2 warm;
+              `simulate_batch` queries/s;
   5. analytic the paper's §6.3 case study through the port's host modules
               (analytic campaign, Eq. 6/7 fits, ζ-sweep, baselines), then
               `cost_matrices` on the card over the llama2-7b/13b/70b fleet
@@ -202,6 +206,24 @@ def time_ms(torch, fn, flush, reps=30) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def time_warm_ms(torch, fn, reps=64) -> float:
+    """Mean device time of fn() over reps calls back to back with the L2
+    warm: the host enqueues all of them behind a spin on the device, so
+    the events bracket the kernels alone, one after another, without
+    time_ms's cold L2 and its event pair around each lone launch."""
+    for _ in range(3):
+        fn()
+    torch.cuda._sleep(20_000_000)        # ~10 ms, longer than enqueueing reps calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def decode_bound(shape, pos, dtype_name) -> tuple[float, str]:
@@ -476,39 +498,54 @@ def rglru_inputs(torch, B, S, W, seed):
 
 def ssd_within(torch, ours, plain, dtype) -> tuple[float, bool]:
     """f32: atol 2e-4, rtol 1e-3 (TestSSDScan).  bf16: within 2e-2 of the
-    output's largest magnitude (the plain version rounds its scores and
-    chunk states to bf16 as the reference does; the kernel keeps f32)."""
+    output's largest magnitude (kernel and plain version round the scores,
+    the chunk states and the decay-weighted inputs to bf16 as the reference
+    does, but the plain version's bf16 einsums also round their outputs,
+    and the two chunk at 64 and 256 steps)."""
     diff = (ours.float() - plain.float()).abs()
     if dtype == torch.float32:
         return diff.max().item(), bool((diff <= 2e-4 + 1e-3 * plain.float().abs()).all())
     return diff.max().item(), diff.max().item() <= 2e-2 * plain.float().abs().max().item()
 
 
+# Edges of the kernels' designs: B3's 64-step bf16 chunks (S = 1, 63, 64,
+# 65, 129), state sizes 16..256 and two groups; B4's tiles (S = 4100),
+# float4 edge (W = 4097) and the serve prefill shape.
+SSD_EDGES = [(2, 1, 24, 64, 1, 128), (2, 63, 24, 64, 1, 128), (2, 64, 24, 64, 1, 128),
+             (2, 65, 24, 64, 1, 128), (2, 129, 24, 64, 1, 128), (1, 65, 4, 16, 2, 16),
+             (1, 129, 4, 32, 2, 64), (2, 129, 8, 64, 2, 256)]
+RGLRU_EDGES = [(4, 48, 4096), (2, 4100, 4096), (2, 128, 4097)]
+
+
 def check_scans(torch, kss, krg) -> dict:
     """B3 at mamba2-130m's shape (h=24, p=64, n=128, one group) and B4 at
     recurrentgemma-9b's width (W=4096), S spanning short, ragged, whole and
-    multi-chunk sequences, with and without an initial state.  Returns
-    kernel -> worst max_abs_err per dtype."""
+    multi-chunk sequences, with and without an initial state; then the
+    designs' edges (SSD_EDGES, RGLRU_EDGES).  Returns kernel -> worst
+    max_abs_err per dtype."""
     worst = collections.defaultdict(float)
     misses = []
-    for b in (2, 4):
+    ssd_cases = [(b, s, 24, 64, 1, 128) for b in (2, 4) for s in (8, 37, 128, 256, 300)]
+    for case in ssd_cases + SSD_EDGES:
+        b, s, h, p, g, n = case
         for dtype in (torch.bfloat16, torch.float32):
-            for s in (8, 37, 128, 256, 300):
-                xdt, dA, B, C, h0 = ssd_inputs(torch, b, s, 24, 64, 1, 128, dtype, seed=s + b)
-                for init in (None, h0):
-                    y, fin = kss.ssd_scan(xdt, dA, B, C, chunk=256, h0=init)
-                    y_p, fin_p = kss.ssd_scan_plain(xdt, dA, B, C, chunk=256, h0=init)
-                    (ey, oy), (ef, of) = (ssd_within(torch, y, y_p, dtype),
-                                          ssd_within(torch, fin, fin_p, dtype))
-                    name = str(dtype).removeprefix("torch.")
-                    worst[f"B3 {name}"] = max(worst[f"B3 {name}"], ey, ef)
-                    label = f"b={b} S={s} {name} h0={'yes' if init is not None else 'no'}"
-                    print(f"[check] B3 {label}: y max_abs_err={ey:.3e}, final state "
-                          f"max_abs_err={ef:.3e} {'ok' if oy and of else 'MISS'}")
-                    if not (oy and of):
-                        misses.append(f"B3 {label}")
-    for s in (1, 8, 37, 128, 300):
-        a, bb, h0 = rglru_inputs(torch, 2, s, 4096, seed=s)
+            xdt, dA, B, C, h0 = ssd_inputs(torch, *case, dtype, seed=s + b)
+            for init in (None, h0):
+                y, fin = kss.ssd_scan(xdt, dA, B, C, chunk=256, h0=init)
+                y_p, fin_p = kss.ssd_scan_plain(xdt, dA, B, C, chunk=256, h0=init)
+                (ey, oy), (ef, of) = (ssd_within(torch, y, y_p, dtype),
+                                      ssd_within(torch, fin, fin_p, dtype))
+                name = str(dtype).removeprefix("torch.")
+                worst[f"B3 {name}"] = max(worst[f"B3 {name}"], ey, ef)
+                label = (f"b={b} S={s} h={h} p={p} g={g} n={n} {name} "
+                         f"h0={'yes' if init is not None else 'no'}")
+                print(f"[check] B3 {label}: y max_abs_err={ey:.3e}, final state "
+                      f"max_abs_err={ef:.3e} {'ok' if oy and of else 'MISS'}")
+                if not (oy and of):
+                    misses.append(f"B3 {label}")
+    rglru_cases = [(2, s, 4096) for s in (1, 8, 37, 128, 300)]
+    for Bsz, s, W in rglru_cases + RGLRU_EDGES:
+        a, bb, h0 = rglru_inputs(torch, Bsz, s, W, seed=s)
         for init in (None, h0):
             h, last = krg.rglru_scan(a, bb, init)
             h_p, last_p = krg.rglru_scan_plain(a, bb, init)
@@ -516,7 +553,8 @@ def check_scans(torch, kss, krg) -> dict:
             ok = bool(((h - h_p).abs() <= 1e-4 + 1e-4 * h_p.abs()).all()
                       and ((last - last_p).abs() <= 1e-4 + 1e-4 * last_p.abs()).all())
             worst["B4 float32"] = max(worst["B4 float32"], err)
-            label = f"B=2 S={s} W=4096 h0={'yes' if init is not None else 'no'}"
+            label = (f"B={Bsz} S={s} W={W} {krg.plan(s, W)} "
+                     f"h0={'yes' if init is not None else 'no'}")
             print(f"[check] B4 {label}: max_abs_err={err:.3e} tol=1e-4 {'ok' if ok else 'MISS'}")
             if not ok:
                 misses.append(f"B4 {label}")
@@ -549,19 +587,22 @@ def rglru_bound(B, S, W) -> tuple[float, str]:
 def time_scans(torch, kss, krg) -> dict:
     """B3 and B4 at the shapes the serve path gives them: the KV-off
     characterization's longest forward (batch 2, S=128) and a KV-on serve
-    prefill (batch 4, S=48), bf16 as the models run B3, f32 for B4.  No
-    single PyTorch call computes either function: no library time."""
+    prefill (batch 4, S=48); B3 in bf16 as the models run it and in f32
+    (its other kernel), B4 in f32.  No single PyTorch call computes either
+    function: no library time."""
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     out = {}
     for label, b, s in (("characterize", 2, 128), ("serve", 4, 48)):
-        xdt, dA, B, C, _ = ssd_inputs(torch, b, s, 24, 64, 1, 128, torch.bfloat16, seed=7)
-        t = {"ms": time_ms(torch, lambda: kss.ssd_scan(xdt, dA, B, C, chunk=256), flush),
-             "plain_ms": time_ms(torch, lambda: kss.ssd_scan_plain(xdt, dA, B, C, chunk=256),
-                                 flush),
-             "library_ms": None}
-        t["bound_ms"], t["bound_by"] = ssd_bound(b, s, 24, 64, 1, 128, "bfloat16")
-        t["shape"] = f"b={b} S={s} h=24 p=64 g=1 n=128 bfloat16"
-        out[f"B3 {label}"] = t
+        for dtype, key in ((torch.bfloat16, f"B3 {label}"), (torch.float32, f"B3 f32 {label}")):
+            xdt, dA, B, C, _ = ssd_inputs(torch, b, s, 24, 64, 1, 128, dtype, seed=7)
+            t = {"ms": time_ms(torch, lambda: kss.ssd_scan(xdt, dA, B, C, chunk=256), flush),
+                 "plain_ms": time_ms(torch, lambda: kss.ssd_scan_plain(xdt, dA, B, C,
+                                                                       chunk=256), flush),
+                 "library_ms": None}
+            dtype_name = str(dtype).removeprefix("torch.")
+            t["bound_ms"], t["bound_by"] = ssd_bound(b, s, 24, 64, 1, 128, dtype_name)
+            t["shape"] = f"b={b} S={s} h=24 p=64 g=1 n=128 {dtype_name}"
+            out[key] = t
         a, bb, _ = rglru_inputs(torch, b, s, 4096, seed=7)
         t = {"ms": time_ms(torch, lambda: krg.rglru_scan(a, bb), flush),
              "plain_ms": time_ms(torch, lambda: krg.rglru_scan_plain(a, bb), flush),
@@ -573,6 +614,31 @@ def time_scans(torch, kss, krg) -> dict:
         print(f"[time] {name} ({t['shape']}): kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    # What the times above stand on: the floor of this timing (a one-element
+    # add), a streaming PyTorch kernel over B4's bytes (reads two [B,S,W]
+    # f32 arrays, writes one: not B4's function), and B3's time per 64-step
+    # chunk (bf16, b=2, S = 64..512).
+    # The same again back to back with the L2 warm (time_warm_ms), as B4
+    # meets a and b in a prefill right after the kernels that made them.
+    one = torch.zeros(1, device="cuda")
+    print(f"[time] timing floor (one-element add): {time_ms(torch, lambda: one.add_(1), flush):.4f}"
+          f" ms; warm, back to back: {time_warm_ms(torch, lambda: one.add_(1)):.4f} ms")
+    for b, s in ((2, 128), (4, 48)):
+        a, bb, _ = rglru_inputs(torch, b, s, 4096, seed=7)
+        h = torch.empty_like(a)
+        print(f"[time] B4 yardstick, torch.mul(a, b, out=h) at B={b} S={s} W=4096: "
+              f"{time_ms(torch, lambda: torch.mul(a, bb, out=h), flush):.4f} ms; warm, back to "
+              f"back: {time_warm_ms(torch, lambda: torch.mul(a, bb, out=h)):.4f} ms, B4 "
+              f"{time_warm_ms(torch, lambda: krg.rglru_scan(a, bb)):.4f} ms")
+        xdt, dA, B, C, _ = ssd_inputs(torch, b, s, 24, 64, 1, 128, torch.bfloat16, seed=7)
+        print(f"[time] B3 bf16 at b={b} S={s}, warm, back to back: "
+              f"{time_warm_ms(torch, lambda: kss.ssd_scan(xdt, dA, B, C, chunk=256)):.4f} ms")
+    sweep = {}
+    for s in (64, 128, 256, 512):
+        xdt, dA, B, C, _ = ssd_inputs(torch, 2, s, 24, 64, 1, 128, torch.bfloat16, seed=7)
+        sweep[s] = time_ms(torch, lambda: kss.ssd_scan(xdt, dA, B, C, chunk=256), flush)
+    print(f"[time] B3 bf16 at b=2 by S: " + ", ".join(f"S={s} {t:.4f} ms" for s, t in sweep.items())
+          + f"; {(sweep[512] - sweep[64]) / 7:.4f} ms a further 64-step chunk")
     return out
 
 
@@ -695,7 +761,7 @@ def check_scan_outputs(torch, serve_mod) -> None:
     compare_reduced(torch, "mamba2-130m-reduced", 37)
     compare_reduced(torch, "recurrentgemma-9b-reduced", 37)
     for arch, keys, label in (
-            ("mamba2-130m", ("ssd_chunk_scan_kernel",), "B3"),
+            ("mamba2-130m", ("ssd_chunk_scan_bf16_kernel", "ssd_chunk_scan_f32_kernel"), "B3"),
             ("recurrentgemma-9b", ("rglru_scan_kernel",), "B4")):
         eng, cache, token = check_full_width(torch, serve_mod, arch)
         tokens = torch.randint(1, eng.cfg.vocab_size, (4, 48), device="cuda",

@@ -8,6 +8,14 @@ for its bound and design), and computes the recurrence of the model path
 Pallas kernel needs block multiples) and an initial state `h0`, folded
 in as the reference folds it.
 
+The kernel is a one-pass segmented scan: a block takes 32 channels of
+one batch row and splits the sequence into `nseg` segments of `seg_len`
+steps; each thread loads its whole segment before using any of it,
+composes the segment's affine map, scans the maps of the segments before
+it through shared memory, and replays its segment with that carry-in.
+`plan` picks the split from the shape; `segmented_scan_emulated` in
+tests/test_torch_scan_kernels.py follows the same split on the CPU.
+
 `rglru_scan` is the one entry point.  For CPU tensors it runs
 `rglru_scan_plain`, the same function in plain PyTorch; for CUDA tensors
 it launches the kernel or raises, and never falls back.
@@ -25,6 +33,24 @@ from repro_torch.kernels import _build
 # Launches of the CUDA kernel through `rglru_scan` since the last reset; a
 # run sets it to 0 and reads it to show that it went through B4.
 launches = 0
+
+ROW_CHANNELS = 32    # channels a block covers: 128 bytes of a row (csrc kRowChannels)
+SEG_LEN = 8          # steps a thread holds in registers (csrc kMaxLen)
+MAX_THREADS = 256    # threads a block
+
+
+def plan(S: int, W: int, aligned: bool = True) -> tuple[int, int, int]:
+    """(vec, nseg, seg_len) of the kernel for sequence length S and width
+    W: 4 channels a thread (float4) when W % 4 == 0 and the tensors start
+    on 16-byte boundaries, else 1; segments of up to SEG_LEN steps, as many
+    as S needs up to the block's threads, so a longer sequence is walked in
+    tiles of nseg * seg_len steps with the state carried over.  At
+    recurrentgemma-9b's serve shapes (S <= 256) one tile covers S and every
+    load of a and b is in flight at once.  Longer segments make a shorter
+    scan of the maps; 8 steps keep a thread's a and b in 64 registers."""
+    vec = 4 if aligned and W % 4 == 0 else 1
+    nseg = min(MAX_THREADS * vec // ROW_CHANNELS, -(-S // SEG_LEN))
+    return vec, nseg, min(SEG_LEN, -(-S // nseg))
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
@@ -68,7 +94,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None)
 @functools.cache
 def _kernel():
     fn = _build.load("rglru_scan").rglru_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -86,8 +112,10 @@ def _launch(a, b, h0):
     fn = _kernel()
     h = torch.empty_like(a)
     h_last = torch.empty((Bsz, W), dtype=torch.float32, device=a.device)
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (a, b, h0, h, h_last))
+    vec, nseg, seg_len = plan(S, W, aligned)
     err = fn(a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
-             h.data_ptr(), h_last.data_ptr(), Bsz, S, W,
+             h.data_ptr(), h_last.data_ptr(), Bsz, S, W, vec, nseg, seg_len,
              torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"rglru_scan kernel launch failed: cudaError_t {err}")

@@ -6,16 +6,24 @@ over a whole sequence, chunked: quadratic within a chunk, linear across
 chunks.
 
 Replaces the TPU kernel `repro.kernels.ssd_scan.ssd_scan` with the
-hand-written CUDA kernel in `csrc/ssd_scan.cu` (see the note there for its
-bound and design), and computes what the model path
+hand-written CUDA kernels in `csrc/ssd_scan.cu` (see the note there for
+their bound and design), and computes what the model path
 `repro.models.ssm.ssd_chunked` computes, without its limits: any S (the
 last chunk may be shorter) and an initial state `h0`.  B and C come per
 group, [b, s, g, n], and head h reads group h // (H/G); the reference
 broadcasts them to heads first.
 
+The library holds two kernels, one per input type.  bf16, the models'
+type, runs the chunk products on the tensor cores (`mma.sync` bf16 ->
+f32, 64-step chunks), rounding to bf16 where this module's plain version
+and the reference round: the decay-masked scores, the state that enters a
+chunk, and the decay-weighted inputs of the state update.  f32 runs them
+in scalar f32 (32-step chunks): TF32 products would miss the f32 gate.
+
 `ssd_scan` is the one entry point.  For CPU tensors it runs
 `ssd_scan_plain`, the port of `ssd_chunked` in plain PyTorch; for CUDA
-tensors it launches the kernel or raises, and never falls back.
+tensors it launches the kernel of the input type or raises, and never
+falls back.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 P_TILE = 16          # head-dim rows of the state per block (csrc kPT)
-MAX_STATE = 256      # largest state size N the kernel takes
+MAX_STATE = 256      # largest state size N the kernels take
+N_STEP = 16          # bf16: the state size is a multiple of the mma depth
+CHUNK = {torch.float32: 32, torch.bfloat16: 64}   # the kernels' chunk lengths
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -108,8 +118,8 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, *, chunk: int, h0: torch.Tensor | None = None):
     """`ssd_scan_plain`'s function: the plain version on CPU tensors, the
     CUDA kernel on CUDA tensors.  `chunk` is the plain version's chunk
-    length (the config's `ssm_chunk`); the kernel walks the sequence in
-    chunks of its own (32 steps), which changes only the rounding order:
+    length (the config's `ssm_chunk`); the kernels walk the sequence in
+    chunks of their own (`CHUNK`), which changes only the rounding order:
     the chunked form is exact for any chunk length."""
     if xdt.dim() != 4 or dA.dim() != 3 or B.dim() != 4 or C.shape != B.shape:
         raise ValueError(f"want xdt [b,s,h,p], dA [b,s,h], B/C [b,s,g,n]; got "
@@ -141,6 +151,9 @@ def _kernel():
 
 
 def _launch(xdt, dA, B, C, h0):
+    """Launch the kernel of xdt's type: a dispatch between the library's
+    two hand-written kernels (bf16 on the tensor cores, f32 in scalar
+    f32), not a fallback; both count in `launches`."""
     global launches
     b, s, h, p = xdt.shape
     g, n = B.shape[2], B.shape[3]
@@ -152,9 +165,16 @@ def _launch(xdt, dA, B, C, h0):
     if p % P_TILE or n > MAX_STATE:
         raise ValueError(f"the SSD kernel takes head dims that are multiples of "
                          f"{P_TILE} and states up to {MAX_STATE}; got p={p}, n={n}")
+    if xdt.dtype == torch.bfloat16 and n % N_STEP:
+        raise ValueError(f"the bf16 SSD kernel takes state sizes that are multiples "
+                         f"of {N_STEP}; got n={n}")
     for name, t in (("xdt", xdt), ("dA", dA), ("B", B), ("C", C), ("h0", h0)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if (xdt.dtype == torch.bfloat16 and name != "dA" and t is not None
+                and t.data_ptr() % 16):
+            raise ValueError(f"the bf16 SSD kernel reads xdt, B, C and h0 in wide "
+                             f"pieces: {name} must start on a 16-byte boundary")
     fn = _kernel()
     y = torch.empty_like(xdt)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=xdt.device)

@@ -19,9 +19,13 @@ versions at the shapes of mamba2-130m and recurrentgemma-9b and their
 reduced variants, ragged S and an initial state included, with the input
 scales and f32 tolerances of tests/test_kernels.py (TestSSDScan: atol 2e-4,
 rtol 1e-3; TestRGLRU: 1e-4).  B3 in bf16 (y and final state) is held
-within 2e-2 of the output's largest magnitude: the plain version rounds
-its scores and chunk states to bf16 as the reference does, the kernel
-keeps them in f32.
+within 2e-2 of the output's largest magnitude: kernel and plain version
+round the scores, chunk states and decay-weighted inputs to bf16 as the
+reference does, but the plain version's bf16 einsums also round their
+outputs and chunk at 256 steps where the kernel chunks at 64.  The edge
+cases follow the designs: S around B3's 64-step chunks, state sizes 16 to
+256, p-tiles of 16 to 64, two groups; B4's tiles (S = 4100), its float4
+edge (W = 4097) and unaligned inputs.
 
 B2 (the analytic pass-cost surface) is held against its plain version on
 the card for the eight family branches, at rtol 1e-5 in float32 (the
@@ -181,6 +185,16 @@ SSD_CASES = [               # (b, s, h, p, g, n): mamba2-130m and reduced
     (4, 300, 24, 64, 1, 128),
     (2, 37, 32, 16, 1, 16),      # mamba2-130m-reduced
     (2, 100, 8, 32, 2, 64),      # two groups
+    # edges of the bf16 kernel's 64-step chunks, state sizes and p-tiles
+    (2, 1, 24, 64, 1, 128),
+    (2, 63, 24, 64, 1, 128),
+    (2, 64, 24, 64, 1, 128),
+    (2, 65, 24, 64, 1, 128),
+    (2, 129, 24, 64, 1, 128),
+    (1, 65, 4, 16, 2, 16),
+    (1, 129, 4, 32, 2, 64),
+    (1, 63, 4, 64, 2, 256),
+    (2, 129, 8, 64, 2, 256),
 ]
 
 
@@ -230,9 +244,24 @@ def test_ssd_scan_rejects_what_the_kernel_does_not_take(cuda):
         kss.ssd_scan(xdt.transpose(1, 2).contiguous().transpose(1, 2), dA, B, C, chunk=8)
 
 
+def test_ssd_scan_bf16_rejects_state_sizes_off_the_mma_depth(cuda):
+    """The bf16 kernel's products step through the state in 16s."""
+    xdt, dA, B, C, _ = ssd_inputs(1, 8, 2, 16, 1, 24, torch.bfloat16)
+    before = kss.launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kss.ssd_scan(xdt, dA, B, C, chunk=8)
+    assert kss.launches == before
+    xdt, dA, B, C, _ = ssd_inputs(1, 8, 2, 16, 1, 24, torch.float32)
+    y, _ = kss.ssd_scan(xdt, dA, B, C, chunk=8)     # the f32 kernel takes any n
+    assert kss.launches == before + 1
+
+
 RGLRU_CASES = [             # (B, S, W): recurrentgemma-9b, reduced, ragged
     (2, 1, 4096), (2, 8, 4096), (2, 37, 4096), (4, 300, 4096),
     (2, 37, 128), (3, 64, 100),
+    (2, 128, 4096), (4, 48, 4096),        # the serve shapes: one tile
+    (2, 4100, 256),                       # many tiles, state carried over
+    (2, 128, 4097), (1, 300, 4097),       # W % 4 != 0: one channel a thread
 ]
 
 
@@ -249,6 +278,21 @@ def test_rglru_scan_matches_plain(cuda, case, with_h0):
     h, last = krg.rglru_scan(a, b, h0)
     assert krg.launches == before + 1
     h_p, last_p = krg.rglru_scan_plain(a, b, h0)
+    close(h, h_p, 1e-4)
+    close(last, last_p, 1e-4)
+
+
+def test_rglru_scan_unaligned_inputs(cuda):
+    """Inputs that do not start on a 16-byte boundary take the
+    one-channel-a-thread path, W % 4 == 0 notwithstanding."""
+    Bsz, S, W = 2, 40, 256
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b = 0.1 * torch.randn((Bsz, S, W), generator=gen, device="cuda")
+    a = torch.empty(Bsz * S * W + 1, device="cuda")[1:].view(Bsz, S, W)
+    a.copy_(0.7 + 0.299 * torch.rand((Bsz, S, W), generator=gen, device="cuda"))
+    assert a.data_ptr() % 16 and a.is_contiguous()
+    h, last = krg.rglru_scan(a, b)
+    h_p, last_p = krg.rglru_scan_plain(a, b)
     close(h, h_p, 1e-4)
     close(last, last_p, 1e-4)
 

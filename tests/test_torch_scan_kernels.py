@@ -140,12 +140,14 @@ class TestSSDPlain:
             close(fin, rfin)
 
     def test_chunk_length_changes_only_rounding(self):
-        """The CUDA kernel walks 32-step chunks whatever `chunk` says."""
+        """The CUDA kernels walk chunks of their own (`kss.CHUNK`: 32 steps
+        in f32, 64 in bf16) whatever `chunk` says."""
         xdt, dA, B, C, h0 = ssd_inputs(1, 96, 2, 16, 16, g=1, seed=5)
-        a = port_ssd(xdt, dA, B, C, h0=h0, chunk=32, fn=kss.ssd_scan_plain)
         b = port_ssd(xdt, dA, B, C, h0=h0, chunk=96, fn=kss.ssd_scan_plain)
-        for x, y in zip(a, b):
-            close(x, y, 1e-5, 1e-5)
+        for chunk in sorted(set(kss.CHUNK.values())):
+            a = port_ssd(xdt, dA, B, C, h0=h0, chunk=chunk, fn=kss.ssd_scan_plain)
+            for x, y in zip(a, b):
+                close(x, y, 1e-5, 1e-5)
 
     def test_bfloat16_keeps_the_reference_casts(self):
         xdt, dA, B, C, _ = ssd_inputs(1, 32, 2, 16, 16, g=1, seed=6)
@@ -159,6 +161,94 @@ class TestSSDPlain:
         # bf16 rounds at the same places; the order of sums inside differs
         close(y.float().numpy(), np.asarray(jy, np.float32), 2e-2, 2e-2)
         close(fin.numpy(), jfin, 2e-2, 2e-2)
+
+
+def bf16_round(x):
+    """float32 -> the nearest bfloat16 (ties to even), kept in float32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def ssd_bf16_emulated(xdt, dA, B, C, h0=None, rnd=bf16_round):
+    """The bf16 CUDA kernel's arithmetic in numpy float32: 64-step chunks,
+    the ragged last chunk padded with zeros (dA = 0), the decay mask on
+    C B^T, and bf16 rounding (`rnd`) of the masked scores, of the state
+    entering a chunk and of the decay-weighted x of the state update.
+    With rnd = identity it is the exact chunked form in f32."""
+    Q = 64
+    b, s, h, p = xdt.shape
+    g, n = B.shape[2], B.shape[3]
+    B, C = to_heads(B, h), to_heads(C, h)
+    st = np.zeros((b, h, p, n), np.float32) if h0 is None else h0.astype(np.float32)
+    y = np.zeros((b, s, h, p), np.float32)
+    causal = np.tril(np.ones((Q, Q), bool))
+    for t0 in range(0, s, Q):
+        ln = min(Q, s - t0)
+        x_c, b_c, c_c = (np.zeros((b, Q, h, d), np.float32) for d in (p, n, n))
+        da = np.zeros((b, Q, h), np.float32)
+        x_c[:, :ln], b_c[:, :ln], c_c[:, :ln] = (xdt[:, t0:t0 + ln], B[:, t0:t0 + ln],
+                                                 C[:, t0:t0 + ln])
+        da[:, :ln] = dA[:, t0:t0 + ln]
+        cs = np.cumsum(da, axis=1, dtype=np.float32)                     # [b,Q,h]
+        G = np.einsum("bthn,bjhn->bhtj", c_c, b_c)
+        seg = cs.transpose(0, 2, 1)[..., :, None] - cs.transpose(0, 2, 1)[..., None, :]
+        G = rnd(np.where(causal, G * np.exp(np.minimum(seg, 0)), 0).astype(np.float32))
+        y_c = (np.einsum("bhtj,bjhp->bthp", G, x_c)
+               + np.exp(cs)[..., None] * np.einsum("bthn,bhpn->bthp", c_c, rnd(st)))
+        y[:, t0:t0 + ln] = rnd(y_c[:, :ln].astype(np.float32))
+        xd = rnd((x_c * np.exp(cs[:, -1:] - cs)[..., None]).astype(np.float32))
+        st = (np.exp(cs[:, -1])[..., None, None] * st
+              + np.einsum("bthp,bthn->bhpn", xd, b_c)).astype(np.float32)
+    return y, st
+
+
+SSD_EDGE_CASES = [          # (b, s, h, p, g, n): around the 64-step chunk
+    (2, 1, 4, 16, 2, 16),
+    (1, 63, 4, 32, 2, 64),
+    (2, 64, 2, 16, 1, 128),
+    (1, 65, 4, 16, 2, 256),
+    (2, 129, 4, 32, 2, 64),
+]
+
+
+class TestSSDKernelOrder:
+    """The bf16 CUDA kernel's chunking and rounding points, emulated."""
+
+    @pytest.mark.parametrize("case", SSD_EDGE_CASES)
+    def test_rounded_emulation_within_the_bf16_gate_of_plain(self, case):
+        b, s, h, p, g, n = case
+        xdt, dA, B, C, h0 = (bf16_round(t) if i in (0, 2, 3) else t
+                             for i, t in enumerate(ssd_inputs(b, s, h, p, n, g=g, seed=s)))
+        for init in (None, h0):
+            y, fin = ssd_bf16_emulated(xdt, dA, B, C, init)
+            bf = [torch.as_tensor(t).bfloat16() for t in (xdt, B, C)]
+            y_p, fin_p = kss.ssd_scan_plain(bf[0], torch.as_tensor(dA), bf[1], bf[2],
+                                            chunk=256,
+                                            h0=None if init is None else torch.as_tensor(init))
+            for ours, plain in ((y, y_p.float().numpy()), (fin, fin_p.numpy())):
+                assert np.abs(ours - plain).max() <= 2e-2 * np.abs(plain).max()
+
+    @pytest.mark.parametrize("case", SSD_EDGE_CASES)
+    def test_unrounded_emulation_matches_the_oracle(self, pallas, case):
+        """Without the bf16 roundings the kernel's chunking is the exact
+        recurrence: held to the sequential oracle at the f32 gate, which
+        an off-by-one chunk edge or carry would miss."""
+        _, _, ref = pallas
+        b, s, h, p, g, n = case
+        xdt, dA, B, C, h0 = ssd_inputs(b, s, h, p, n, g=g, seed=s)
+        for init in (None, h0):
+            y, fin = ssd_bf16_emulated(xdt, dA, B, C, init, rnd=lambda t: t)
+            ry, rfin = ref.ssd_scan_ref(
+                jnp.asarray(xdt), jnp.asarray(dA), jnp.asarray(to_heads(B, h)),
+                jnp.asarray(to_heads(C, h)), None if init is None else jnp.asarray(init))
+            close(y, ry)
+            close(fin, rfin)
+
+    def test_bf16_rounding_helper(self):
+        x = np.array([1.0, 1.00390625, 1.005859375, -3.0e-3, 65504.0], np.float32)
+        np.testing.assert_array_equal(
+            bf16_round(x), torch.as_tensor(x).bfloat16().float().numpy())
 
 
 def rglru_inputs(B, S, W, seed=0):
@@ -219,6 +309,69 @@ class TestRGLRUPlain:
                                      jnp.asarray(u), None if init is None else jnp.asarray(init))
             for x, y in zip(ours, ref):
                 close(x.numpy(), y, 1e-5, 1e-5)
+
+
+def segmented_scan_emulated(a, b, h0=None, aligned=True):
+    """The B4 CUDA kernel's order in numpy float32, with the split that
+    `plan` picks: tiles of nseg * seg_len steps; per tile each segment's
+    affine map (A, Bc) composed step by step, an exclusive walk of the maps
+    from the tile's carry-in, and the segment replayed with its carry."""
+    Bsz, S, W = a.shape
+    _, nseg, seg_len = krg.plan(S, W, aligned)
+    carry = np.zeros((Bsz, W), np.float32) if h0 is None else h0.astype(np.float32)
+    h = np.zeros_like(a)
+    for t0 in range(0, S, nseg * seg_len):
+        maps, starts = [], []
+        for sg in range(nseg):
+            ts = t0 + sg * seg_len
+            A, Bc = np.ones((Bsz, W), np.float32), np.zeros((Bsz, W), np.float32)
+            for t in range(ts, min(ts + seg_len, S)):
+                Bc = a[:, t] * Bc + b[:, t]
+                A = a[:, t] * A
+            maps.append((A, Bc))
+        hin = carry
+        for A, Bc in maps:
+            starts.append(hin)
+            hin = A * hin + Bc
+        carry = hin
+        for sg in range(nseg):
+            ts, hv = t0 + sg * seg_len, starts[sg]
+            for t in range(ts, min(ts + seg_len, S)):
+                hv = a[:, t] * hv + b[:, t]
+                h[:, t] = hv
+    return h, carry
+
+
+class TestRGLRUKernelOrder:
+    """The B4 CUDA kernel's segmented scan, emulated with the wrapper's split."""
+
+    @pytest.mark.parametrize("S,W,aligned", [(1, 4096, True), (37, 64, True),
+                                             (128, 256, True), (48, 128, True),
+                                             (300, 36, True), (4100, 8, True),
+                                             (300, 37, True), (100, 64, False)])
+    def test_emulation_matches_plain(self, S, W, aligned):
+        a, b, h0 = rglru_inputs(2, S, W, seed=S)
+        for init in (None, h0):
+            h, last = segmented_scan_emulated(a, b, init, aligned)
+            h_p, last_p = port_rglru(a, b, init, fn=krg.rglru_scan_plain)
+            close(h, h_p, 1e-4, 1e-4)
+            close(last, last_p, 1e-4, 1e-4)
+
+    def test_plan(self):
+        """Serve prefills (S <= 256 at W = 4096) are one tile of float4
+        threads, every load in flight at once; longer sequences take tiles
+        of 256 steps; a width off the float4 grid or unaligned tensors take
+        one channel a thread."""
+        for S in (1, 8, 37, 48, 128, 256):
+            vec, nseg, seg_len = krg.plan(S, 4096)
+            assert vec == 4 and nseg * seg_len >= S and seg_len <= krg.SEG_LEN
+            assert nseg * krg.ROW_CHANNELS // vec <= krg.MAX_THREADS
+        assert krg.plan(128, 4096) == (4, 16, 8)
+        assert krg.plan(48, 4096) == (4, 6, 8)
+        assert krg.plan(4100, 4096) == (4, 32, 8)
+        assert krg.plan(300, 4097)[0] == 1 and krg.plan(300, 4096, aligned=False)[0] == 1
+        vec, nseg, seg_len = krg.plan(300, 4097)
+        assert nseg * krg.ROW_CHANNELS // vec <= krg.MAX_THREADS
 
 
 class CudaStub:
@@ -285,6 +438,44 @@ class TestWrappers:
         with pytest.raises(RuntimeError, match="nvcc"):
             kda.decode_attention(CudaStub((2, 16, 256)), CudaStub((2, 64, 1, 256)),
                                  CudaStub((2, 64, 1, 256)), CudaStub((), torch.int32), ring=True)
+
+    def test_bf16_state_sizes_off_the_mma_depth_raise(self, monkeypatch):
+        """The bf16 kernel steps through the state in 16s: a bf16 call with
+        n % 16 != 0 (or n > 256) raises before anything is built or launched."""
+        _no_fallback(monkeypatch, kss, "ssd_scan_plain")
+        before = kss.launches
+        bf = torch.bfloat16
+        for n in (24, 8, 272):
+            with pytest.raises(ValueError, match="multiples of 16|states up to"):
+                kss.ssd_scan(CudaStub((2, 8, 4, 16), bf), CudaStub((2, 8, 4)),
+                             CudaStub((2, 8, 1, n), bf), CudaStub((2, 8, 1, n), bf), chunk=8)
+        with pytest.raises(RuntimeError, match="nvcc"):    # f32 takes n = 24
+            kss.ssd_scan(CudaStub((2, 8, 4, 16)), CudaStub((2, 8, 4)),
+                         CudaStub((2, 8, 1, 24)), CudaStub((2, 8, 1, 24)), chunk=8)
+        assert kss.launches == before
+
+    def test_bf16_unaligned_inputs_raise(self, monkeypatch):
+        """The bf16 kernel copies 16-byte pieces; dA, read a float at a
+        time, and the f32 kernel take any alignment."""
+        _no_fallback(monkeypatch, kss, "ssd_scan_plain")
+
+        class Unaligned(CudaStub):
+            def data_ptr(self):
+                return 8
+
+        bf = torch.bfloat16
+        args = [CudaStub((2, 8, 4, 16), bf), CudaStub((2, 8, 4)),
+                CudaStub((2, 8, 1, 16), bf), CudaStub((2, 8, 1, 16), bf)]
+        for i in (0, 2, 3):
+            bad = list(args)
+            bad[i] = Unaligned(args[i].shape, bf)
+            with pytest.raises(ValueError, match="16-byte boundary"):
+                kss.ssd_scan(*bad, chunk=8)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            kss.ssd_scan(args[0], Unaligned((2, 8, 4)), args[2], args[3], chunk=8)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            kss.ssd_scan(Unaligned((2, 8, 4, 16)), CudaStub((2, 8, 4)),
+                         Unaligned((2, 8, 1, 16)), Unaligned((2, 8, 1, 16)), chunk=8)
 
     def test_rejects_mixed_and_other_devices(self):
         cpu = torch.zeros(2, 8, 4, 16)
