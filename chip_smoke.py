@@ -8,17 +8,20 @@ Phases, each of which must pass:
   2. build    every CUDA kernel from src/repro_torch/kernels/csrc (B1, B2,
               B3, B4), with the compiler's register/shared-memory report;
   3. check    each kernel against its plain PyTorch version on the card, at
-              the main paths' shapes: B1 (f32 within 1e-4, bf16 within 2e-2)
-              at the llama2 shapes and recurrentgemma-9b's head dim 256
-              ring; B2 for every family branch and both decode modes at
-              m = 1,000,037 (f32 rtol 1e-5, f64 rtol 1e-12); B3 at
-              mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16 within 2e-2 of
+              the main paths' shapes: B1 (q f32 within 1e-4, q bf16 within
+              2e-2, elementwise and of the output's largest magnitude) at
+              the llama2 shapes and recurrentgemma-9b's head dim 256 ring,
+              with bf16 and float8_e4m3fn caches, keys past pos overwritten
+              (the output bit-identical); B2 for every family branch and
+              both decode modes at m = 1,000,037 (f32 rtol 1e-5, f64 rtol
+              1e-12); B3 at mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16 within 2e-2 of
               the output's largest magnitude); B4 at recurrentgemma-9b's
               (1e-4); B3 and B4 also at the edges of their designs (chunk
               and tile boundaries, state sizes 16..256, W % 4 != 0);
   4. timing   each kernel, its plain version and, for B1, a library call
               (CUDA events, L2 flushed between launches), beside the bound
-              for its bytes or operations; the timing's floor, a streaming
+              for its bytes or operations; B1 also back to back with the
+              L2 warm and its wrapper's host time a call; the timing's floor, a streaming
               yardstick for B4 and B3's time per chunk, and B3, B4, the
               floor and the yardstick back to back with the L2 warm;
               `simulate_batch` queries/s;
@@ -42,10 +45,17 @@ Phases, each of which must pass:
               layer; one KV-on generate of each outside the router makes
               every kernel launch whatever the routing;
   7. outputs  reduced models on the card (through the kernels) against the
-              same models on the CPU (plain versions), and finite full-width
-              decode logits that agree with a full re-forward; then the
-              device's busy share of full-width decode steps and prefills
-              and the kernels' shares of it (profiler).
+              same models on the CPU (plain versions), llama2-7b and
+              recurrentgemma-9b also with float8_e4m3fn KV caches, and
+              finite full-width decode logits that agree with a full
+              re-forward; the reference's fp8-cache gate (qwen3-1.7b-reduced,
+              mean |delta logit| < 0.2) on the card, and a full-width
+              llama2-7b fp8-cache decode through B1 against the same
+              through the plain version (relative L2 0.1, with a control
+              the limit must fail), B1's launches counted over its fp8
+              decode steps alone; then the device's busy share of
+              full-width decode steps and prefills and the kernels' shares
+              of it (profiler).
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's sources beside it, or when any phase fails.  The last line is
@@ -123,31 +133,63 @@ def decode_shapes(torch, serve_mod):
     s_serve = max(serve_mod.SERVE_BUCKET, math.ceil(
         (serve_mod.SERVE_WORKLOAD["max_in"] + serve_mod.SERVE_WORKLOAD["max_out"])
         / serve_mod.SERVE_BUCKET) * serve_mod.SERVE_BUCKET)
-    return {   # name -> (B, Hq, Hkv, D, S, dtype)
-        "llama2-7b serve": (4, 32, 32, 128, s_serve, torch.bfloat16),
-        "llama2-13b serve": (4, 40, 40, 128, s_serve, torch.bfloat16),
-        "llama2-70b GQA": (4, 64, 8, 128, 4096, torch.bfloat16),
-        "recurrentgemma-9b ring": (4, 16, 1, 256, 2048, torch.bfloat16),
-        "reduced": (2, 4, 2, 32, s_serve, torch.float32),
+    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
+    return {   # name -> (B, Hq, Hkv, D, S, q dtype, cache dtype)
+        "llama2-7b serve": (4, 32, 32, 128, s_serve, bf, bf),
+        "llama2-7b serve fp8": (4, 32, 32, 128, s_serve, bf, f8),
+        "llama2-13b serve": (4, 40, 40, 128, s_serve, bf, bf),
+        "llama2-70b GQA": (4, 64, 8, 128, 4096, bf, bf),
+        "llama2-70b GQA fp8": (4, 64, 8, 128, 4096, bf, f8),
+        "recurrentgemma-9b ring": (4, 16, 1, 256, 2048, bf, bf),
+        "recurrentgemma-9b ring fp8": (4, 16, 1, 256, 2048, bf, f8),
+        "reduced": (2, 4, 2, 32, s_serve, torch.float32, torch.float32),
+        "reduced fp8": (2, 4, 2, 32, s_serve, torch.float32, f8),
     }
 
 
 def decode_inputs(torch, shape, seed):
-    B, Hq, Hkv, D, S, dtype = shape
+    B, Hq, Hkv, D, S, dtype, cache_dtype = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(B, Hq, D, generator=g, device="cuda").to(dtype)
-    k = torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(dtype)
-    v = torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(cache_dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(cache_dtype)
     return q, k, v
+
+
+def _garbage(torch, k, v, pos, fp8_nan=False):
+    """Copies of k and v with the keys past pos overwritten: +-1e4 (+-448,
+    the largest finite value, in an fp8 cache), or fp8 NaN bit patterns."""
+    k2, v2 = k.clone(), v.clone()
+    if fp8_nan:
+        k2.view(torch.uint8)[:, pos + 1:] = 0x7F
+        v2.view(torch.uint8)[:, pos + 1:] = 0xFF
+    else:
+        big = 448.0 if k.dtype == torch.float8_e4m3fn else 1e4
+        k2[:, pos + 1:] = big
+        v2[:, pos + 1:] = -big
+    return k2, v2
+
+
+def decode_within(a, b, tol) -> bool:
+    """Elementwise within tol + tol*|plain|, and the largest error within
+    tol times the plain output's largest magnitude: with randn inputs a
+    long cache averages the values down to a few hundredths, where the
+    elementwise bound alone is as large as the output."""
+    diff = (a - b).abs()
+    return bool((diff <= tol + tol * b.abs()).all()) and diff.max().item() <= tol * b.abs().max().item()
 
 
 def check_decode(torch, kda, shapes) -> dict:
     """B1 against its plain version: pos 0/mid/S-1, ring full and not,
-    softcap, and keys beyond pos set to +-1e4.  Returns name -> max error."""
+    softcap, and keys beyond pos overwritten (bit-identical output, and
+    NaN bit patterns in fp8 caches too).  Tolerance by q's dtype: f32
+    1e-4, bf16 2e-2, elementwise and against the output's scale
+    (`decode_within`).  Returns name -> max error."""
     errs = {}
     misses = []
     for i, (name, shape) in enumerate(shapes.items()):
         S, dtype = shape[4], shape[5]
+        fp8 = shape[6] == torch.float8_e4m3fn
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         q, k, v = decode_inputs(torch, shape, seed=i)
         cases = [("pos=0", 0, False, 0.0), ("pos=mid", S // 2, False, 0.0),
@@ -159,26 +201,27 @@ def check_decode(torch, kda, shapes) -> dict:
             a = kda.decode_attention(q, k, v, p, ring=ring, softcap=cap).float()
             b = kda.decode_attention_plain(q, k, v, p, ring=ring, softcap=cap).float()
             err = (a - b).abs().max().item()
-            ok = bool(((a - b).abs() <= tol + tol * b.abs()).all())
+            ok = decode_within(a, b, tol)
             worst = max(worst, err)
-            print(f"[check] B1 {name} {label}: max_abs_err={err:.3e} tol={tol:g} "
-                  f"{'ok' if ok else 'MISS'}")
+            print(f"[check] B1 {name} {label}: max_abs_err={err:.3e} "
+                  f"max|plain|={b.abs().max().item():.3e} tol={tol:g} {'ok' if ok else 'MISS'}")
             if not ok:
                 misses.append(f"{name} {label}")
         pos = S // 2
-        k2, v2 = k.clone(), v.clone()
-        k2[:, pos + 1:] = 1e4
-        v2[:, pos + 1:] = -1e4
+        k2, v2 = _garbage(torch, k, v, pos)
         p = torch.tensor(pos, dtype=torch.int32, device="cuda")
         clean = kda.decode_attention(q, k, v, p)
         dirty = kda.decode_attention(q, k2, v2, p)
         plain = kda.decode_attention_plain(q, k2, v2, p)
-        diff = (dirty.float() - plain.float()).abs()
-        err = diff.max().item()
-        ok = torch.equal(clean, dirty) and bool((diff <= tol + tol * plain.float().abs()).all())
+        err = (dirty.float() - plain.float()).abs().max().item()
+        same = torch.equal(clean, dirty)
+        if fp8:
+            same = same and torch.equal(clean, kda.decode_attention(
+                q, *_garbage(torch, k, v, pos, fp8_nan=True), p))
+        ok = same and decode_within(dirty.float(), plain.float(), tol)
         worst = max(worst, err)
-        print(f"[check] B1 {name} garbage tail: bit-identical={torch.equal(clean, dirty)} "
-              f"max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'MISS'}")
+        print(f"[check] B1 {name} garbage tail{' (and fp8 NaN)' if fp8 else ''}: "
+              f"bit-identical={same} max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'MISS'}")
         if not ok:
             misses.append(f"{name} garbage tail")
         errs[name] = worst
@@ -226,45 +269,75 @@ def time_warm_ms(torch, fn, reps=64) -> float:
     return start.elapsed_time(end) / reps
 
 
-def decode_bound(shape, pos, dtype_name) -> tuple[float, str]:
-    """Least time for one call: K/V rows up to pos read once, q read, out
-    written, against the card's memory rate; or its multiply-adds against
-    the peak rate for the input type, whichever is larger."""
-    B, Hq, Hkv, D, S, _ = shape
-    size = 4 if dtype_name == "float32" else 2
+def decode_bound(shape, pos) -> tuple[float, str]:
+    """Least time for one call: K/V rows up to pos read once at the cache's
+    itemsize, q read, out written, against the card's memory rate; or its
+    multiply-adds against the peak rate for q's type (fp8 caches compute
+    in q's type), whichever is larger."""
+    B, Hq, Hkv, D, S, dtype, cache_dtype = shape
     n_valid = min(pos + 1, S)
-    bytes_ = 2 * B * n_valid * Hkv * D * size + 2 * B * Hq * D * size + 4
+    bytes_ = (2 * B * n_valid * Hkv * D * cache_dtype.itemsize
+              + 2 * B * Hq * D * dtype.itemsize + 4)
     ops = 4 * B * Hq * n_valid * D
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype_name]
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[str(dtype).removeprefix("torch.")]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_decode(torch, kda, shapes) -> dict:
+def sdpa_call(torch, q, k, v, pos):
+    """One library call computing B1's function over the same cache and
+    mask (scaled_dot_product_attention, K/V repeated over the group); None
+    for an fp8 cache, which it does not take."""
     import torch.nn.functional as F
+    if k.dtype == torch.float8_e4m3fn:
+        return None
+    B, Hq, _ = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    q4, k4, v4 = q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = (torch.arange(S, device="cuda") <= pos)[None, None, None]
+    if Hq != Hkv:
+        k4, v4 = k4.repeat_interleave(Hq // Hkv, 1), v4.repeat_interleave(Hq // Hkv, 1)
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+
+def host_us(torch, fn, calls=200) -> float:
+    """Host microseconds of one call of fn, the device's work not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def time_decode(torch, kda, shapes) -> dict:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     out = {}
     for i, (name, shape) in enumerate(shapes.items()):
-        B, Hq, Hkv, D, S, dtype = shape
+        B, Hq, Hkv, D, S, dtype, cache_dtype = shape
         q, k, v = decode_inputs(torch, shape, seed=100 + i)
         pos = S - 1
         p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-        # yardstick: one library call over the same cache, same mask
-        q4, k4, v4 = q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-        mask = (torch.arange(S, device="cuda") <= pos)[None, None, None]
-        if Hq != Hkv:
-            k4, v4 = k4.repeat_interleave(Hq // Hkv, 1), v4.repeat_interleave(Hq // Hkv, 1)
-        dtype_name = str(dtype).removeprefix("torch.")
+        call = lambda: kda.decode_attention(q, k, v, p)                     # noqa: E731
+        library = sdpa_call(torch, q, k, v, pos)
         t = {
-            "ms": time_ms(torch, lambda: kda.decode_attention(q, k, v, p), flush),
+            "ms": time_ms(torch, call, flush),
+            "warm_ms": time_warm_ms(torch, call),
             "plain_ms": time_ms(torch, lambda: kda.decode_attention_plain(q, k, v, p), flush),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask), flush),
+            "library_ms": time_ms(torch, library, flush) if library else None,
+            "host_us": host_us(torch, call),
         }
-        t["bound_ms"], t["bound_by"] = decode_bound(shape, pos, dtype_name)
-        t["shape"] = f"B={B} Hq={Hq} Hkv={Hkv} D={D} S={S} pos={pos} {dtype_name}"
-        print(f"[time] B1 {name} ({t['shape']}): kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound")
+        t["bound_ms"], t["bound_by"] = decode_bound(shape, pos)
+        t["shape"] = (f"B={B} Hq={Hq} Hkv={Hkv} D={D} S={S} pos={pos} q "
+                      f"{str(dtype).removeprefix('torch.')} cache "
+                      f"{str(cache_dtype).removeprefix('torch.')}")
+        lib = f"{t['library_ms']:.4f} ms" if library else "none (takes no fp8 cache)"
+        print(f"[time] B1 {name} ({t['shape']}): kernel {t['ms']:.4f} ms (warm, back to "
+              f"back: {t['warm_ms']:.4f} ms; host {t['host_us']:.1f} us a call), plain "
+              f"{t['plain_ms']:.4f} ms, sdpa {lib}, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of bound")
         out[name] = t
     return out
 
@@ -332,39 +405,47 @@ def run_serve(torch, kda, serve_mod) -> int:
     return launches
 
 
-def compare_reduced(torch, arch, prompt_len) -> None:
+def compare_reduced(torch, arch, prompt_len, cache_dtype="") -> None:
     """A reduced f32 model on the card (through the kernels) against the
     same weights on the CPU (plain versions): greedy tokens identical,
-    prefill and decode logits within 1e-4."""
+    prefill and decode logits within 1e-4.  With an fp8 cache
+    (`cache_dtype`) the CPU runs KV-on too: the cache's rounding is the
+    model's, and both sides must make it alike."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import get_api
     from repro_torch.serving import InferenceEngine
 
     cfg = get_config(arch)
+    if cache_dtype:
+        cfg = cfg.replace(cache_dtype=cache_dtype)
     api = get_api(cfg)
+    label = f"{arch}{' ' + cache_dtype + ' cache' if cache_dtype else ''}"
     cpu = api.init_params(cfg, torch.Generator().manual_seed(1), torch.device("cpu"))
     gpu = _map(cpu, lambda t: t.to("cuda"))
     toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, prompt_len)).astype(np.int32)
     a, _ = InferenceEngine(cfg, gpu, kv_cache=True, device="cuda").generate({"tokens": toks}, 8)
-    b, _ = InferenceEngine(cfg, cpu, kv_cache=False, device="cpu").generate({"tokens": toks}, 8)
-    print(f"[outputs] {arch} greedy tokens, card KV-on vs CPU KV-off: "
-          f"identical={np.array_equal(a, b)}")
-    check(np.array_equal(a, b), f"{arch}: greedy tokens differ between card and CPU")
+    b, _ = InferenceEngine(cfg, cpu, kv_cache=bool(cache_dtype), device="cpu").generate(
+        {"tokens": toks}, 8)
+    print(f"[outputs] {label} greedy tokens, card KV-on vs CPU "
+          f"KV-{'on' if cache_dtype else 'off'}: identical={np.array_equal(a, b)}")
+    check(np.array_equal(a, b), f"{label}: greedy tokens differ between card and CPU")
     worst = 0.0
     with torch.no_grad():
         lg, cg = api.prefill(cfg, gpu, {"tokens": torch.as_tensor(toks, device="cuda")},
                              cache_len=prompt_len + 20)
         lc, cc = api.prefill(cfg, cpu, {"tokens": torch.as_tensor(toks)},
                              cache_len=prompt_len + 20)
+        if cache_dtype:
+            check(cg.k.dtype == cfg.kv_dtype, f"{label}: cache is {cg.k.dtype}")
         worst = max(worst, (lg.cpu() - lc).abs().max().item())
         for t in range(4):
             tok = torch.as_tensor(a[:, t])
             lg, cg = api.decode_step(cfg, gpu, cg, {"token": tok.to("cuda")})
             lc, cc = api.decode_step(cfg, cpu, cc, {"token": tok})
             worst = max(worst, (lg.cpu() - lc).abs().max().item())
-    print(f"[outputs] {arch} logits, card vs CPU: max_abs_err={worst:.3e} tol=1e-4")
-    check(worst <= 1e-4, f"{arch}: logits differ between card and CPU")
+    print(f"[outputs] {label} logits, card vs CPU: max_abs_err={worst:.3e} tol=1e-4")
+    check(worst <= 1e-4, f"{label}: logits differ between card and CPU")
 
 
 def check_full_width(torch, serve_mod, arch):
@@ -395,11 +476,120 @@ def check_full_width(torch, serve_mod, arch):
     return eng, cache, toks[:, 15]
 
 
-def check_outputs(torch, serve_mod) -> None:
+# B1's kernels (bf16 and f32 paths) in the profiler's names.
+B1_KEYS = ("flash_decode_",)
+
+
+class PlainAttention:
+    """While active, the model path's attention runs B1's plain version on
+    the card (the reference's arithmetic), for comparison only."""
+
+    def __init__(self, kda):
+        self.kda = kda
+
+    def __enter__(self):
+        self.orig = self.kda.decode_attention
+        self.kda.decode_attention = self.kda.decode_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.kda.decode_attention = self.orig
+
+
+def _fp8_vs_bf16(torch, kda, api, cfg, params, toks, prefix, steps):
+    """Decode logits per step with the config's cache and with an fp8 one,
+    after the same prefill, and B1's launches over the fp8-cache decode
+    steps alone (its count set to 0 just before them, read just after)."""
+    cfg8 = cfg.replace(cache_dtype="float8_e4m3fn")
+    out = {}
+    with torch.no_grad():
+        for name, c in (("base", cfg), ("fp8", cfg8)):
+            _, cache = api.prefill(c, params, {"tokens": toks[:, :prefix]}, cache_len=48)
+            check(cache.k.dtype == c.kv_dtype, f"{c.name}: cache is {cache.k.dtype}")
+            out[name] = []
+            kda.launches = 0
+            for t in range(prefix, prefix + steps):
+                logits, cache = api.decode_step(c, params, cache, {"token": toks[:, t]})
+                out[name].append(logits[:, :cfg.vocab_size].float())
+    return out, kda.launches
+
+
+def check_fp8_decode(torch, kda, eng) -> int:
+    """fp8 KV caches (float8_e4m3fn) through B1.  (1) The reference's own
+    gate (tests/test_models.py: qwen3-1.7b-reduced, one decode step after a
+    12-token prefill, mean |delta logit| against the full-precision cache
+    < 0.2) on the card.  (2) Full-width llama2-7b, 4 decode steps: the fp8
+    decode through the kernel against the same through the plain version
+    (the reference's arithmetic), relative L2 <= 0.1 as check_full_width
+    holds bf16 paths, beside the same gap with the bf16 cache and a
+    control the limit must fail (plain fp8 against plain bf16 cache); and
+    the fp8-vs-bf16 gap of both, against the same 0.2.  Returns B1's
+    launches over the kernel's fp8 decode steps, which must be 4 x layers
+    (and 0 over the plain version's)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api
+
+    rcfg = get_config("qwen3-1.7b-reduced")
+    rapi = get_api(rcfg)
+    rparams = rapi.init_params(rcfg, torch.Generator(device="cuda").manual_seed(0),
+                               torch.device("cuda"))
+    rtoks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, rcfg.vocab_size, (2, 13)).astype(np.int32), device="cuda")
+    small, _ = _fp8_vs_bf16(torch, kda, rapi, rcfg, rparams, rtoks, 12, 1)
+    gap = (small["fp8"][0] - small["base"][0]).abs().mean().item()
+    print(f"[outputs] {rcfg.name} fp8 vs f32 cache, the reference's gate: mean |delta logit| "
+          f"{gap:.4f} (< 0.2)")
+    check(gap < 0.2, f"{rcfg.name}: fp8-cache decode off the reference's gate")
+
+    cfg, api = eng.cfg, eng.api
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (4, 16)).astype(np.int32), device="cuda")
+    kern, n8 = _fp8_vs_bf16(torch, kda, api, cfg, eng.params, toks, 12, 4)
+    with PlainAttention(kda):
+        plain, n_plain = _fp8_vs_bf16(torch, kda, api, cfg, eng.params, toks, 12, 4)
+    torch.cuda.synchronize()
+    gaps = {k: [(a - b).abs().mean().item() for a, b in zip(r["fp8"], r["base"])]
+            for k, r in (("kernel", kern), ("plain", plain))}
+
+    def rel_l2(xs, ys):
+        return max(((a - b).norm() / b.norm()).item() for a, b in zip(xs, ys))
+
+    rel = rel_l2(kern["fp8"], plain["fp8"])
+    # what the 0.1 limit is held against: the same kernel-vs-plain gap with
+    # the bf16 cache (bf16's rounding through 32 layers), and the fp8
+    # cache's own effect (plain fp8 vs plain bf16), which the limit must fail
+    rel_bf16 = rel_l2(kern["base"], plain["base"])
+    control = rel_l2(plain["fp8"], plain["base"])
+    mag = float(np.mean([x.abs().mean().item() for x in kern["base"]]))
+    finite = all(bool(torch.isfinite(x).all()) for x in kern["fp8"])
+    print(f"[outputs] {cfg.name} fp8 cache, 4 decode steps: kernel vs plain relative L2 "
+          f"{rel:.4f} (tol 0.1; with the bf16 cache {rel_bf16:.4f}; control, plain fp8 vs plain "
+          f"bf16 cache, {control:.4f}, must exceed the tol), finite={finite}; "
+          f"mean |delta logit| fp8 vs bf16 cache per step: "
+          f"kernel {', '.join(f'{g:.4f}' for g in gaps['kernel'])}, plain "
+          f"{', '.join(f'{g:.4f}' for g in gaps['plain'])} (the reference's 0.2, at this "
+          f"width: {'met' if max(gaps['kernel']) < 0.2 else 'missed'} by the kernel, "
+          f"{'met' if max(gaps['plain']) < 0.2 else 'missed'} by the plain version); "
+          f"mean |logit| {mag:.4f}; B1 launches over the fp8 steps {n8}")
+    check(finite and rel <= 0.1, f"{cfg.name}: fp8-cache decode through B1 off the plain version")
+    check(control > 0.1, f"{cfg.name}: the 0.1 limit cannot tell an fp8 cache from a bf16 one "
+          f"(control {control:.4f})")
+    check(n8 == 4 * cfg.n_layers and n_plain == 0,
+          f"B1 launched {n8} times over 4 fp8 decode steps of {cfg.n_layers} layers, "
+          f"{n_plain} times through the plain version")
+    return n8
+
+
+def check_outputs(torch, kda, serve_mod) -> int:
+    """Returns B1's launches over the full-width fp8-cache decode."""
     compare_reduced(torch, "llama2-7b-reduced", 12)
+    compare_reduced(torch, "llama2-7b-reduced", 12, cache_dtype="float8_e4m3fn")
     eng, cache, token = check_full_width(torch, serve_mod, "llama2-7b")
-    decode_breakdown(torch, eng.api, eng.cfg, eng.params, cache, token,
-                     ("decode_split_kernel", "decode_combine_kernel"), "B1 (split + combine kernels)")
+    fp8_launches = check_fp8_decode(torch, kda, eng)
+    decode_breakdown(torch, eng.api, eng.cfg, eng.params, cache, token, B1_KEYS,
+                     "B1 (one kernel a call)")
+    return fp8_launches
 
 
 def _profile(torch, fn, steps):
@@ -437,10 +627,12 @@ def _breakdown(label, wall_ms, events, why, steps, kernel_keys, kernel_label) ->
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}")
-    k_ms = sum(e.self_device_time_total for e in events
-               if any(k in e.key for k in kernel_keys)) / 1e3 / steps
+    mine = [e for e in events if any(k in e.key for k in kernel_keys)]
+    k_ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
     print(f"[profile]   {kernel_label}: {k_ms:.4f} ms per call, "
-          f"{k_ms / busy_ms:.3f} of device busy time")
+          f"{k_ms / busy_ms:.3f} of device busy time, over "
+          f"{sum(e.count for e in mine) // steps} launches a call of "
+          f"{sorted({e.key[:80] for e in mine})}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / steps:.4f} ms per call "
               f"x{e.count // steps} {e.key[:90]}")
@@ -760,6 +952,7 @@ def run_scan_serve(torch, counters, serve_mod) -> dict:
 def check_scan_outputs(torch, serve_mod) -> None:
     compare_reduced(torch, "mamba2-130m-reduced", 37)
     compare_reduced(torch, "recurrentgemma-9b-reduced", 37)
+    compare_reduced(torch, "recurrentgemma-9b-reduced", 37, cache_dtype="float8_e4m3fn")
     for arch, keys, label in (
             ("mamba2-130m", ("ssd_chunk_scan_bf16_kernel", "ssd_chunk_scan_f32_kernel"), "B3"),
             ("recurrentgemma-9b", ("rglru_scan_kernel",), "B4")):
@@ -768,9 +961,8 @@ def check_scan_outputs(torch, serve_mod) -> None:
                                generator=torch.Generator(device="cuda").manual_seed(4))
         prefill_breakdown(torch, eng.api, eng.cfg, eng.params, tokens, keys, label)
         if arch == "recurrentgemma-9b":
-            decode_breakdown(torch, eng.api, eng.cfg, eng.params, cache, token,
-                             ("decode_split_kernel", "decode_combine_kernel"),
-                             "B1 (split + combine kernels, head dim 256)")
+            decode_breakdown(torch, eng.api, eng.cfg, eng.params, cache, token, B1_KEYS,
+                             "B1 (one kernel a call, head dim 256)")
         del eng, cache
         gc.collect()
         torch.cuda.empty_cache()
@@ -1010,7 +1202,7 @@ def main() -> int:
     print(f"[phase] analytic path s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     launches = run_serve(torch, kda, serve_mod)
-    check_outputs(torch, serve_mod)
+    fp8_launches = check_outputs(torch, kda, serve_mod)
     print(f"[phase] llama2 path (serve + outputs) s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     scan_launches = run_scan_serve(torch, {"B3": kss, "B4": krg, "B1": kda}, serve_mod)
@@ -1021,12 +1213,16 @@ def main() -> int:
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=n, max_abs_err=err,
                     **{k: timing[shape][k] for k in
-                       ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})
+                       ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+                       + (("warm_ms", "host_us") if "warm_ms" in timing[shape] else ())})
 
     b1 = "src/repro/kernels/decode_attention.py:72"
     kernels = [
         entry("decode_attention (B1, flash-decode GQA), llama2 path", "decode_attention.cu",
               b1, launches, errs["llama2-7b serve"], "llama2-7b serve"),
+        entry("decode_attention (B1) with an fp8 cache, llama2-7b fp8-cache decode",
+              "decode_attention.cu", b1, fp8_launches, errs["llama2-7b serve fp8"],
+              "llama2-7b serve fp8"),
         entry("decode_attention (B1) at head dim 256, recurrentgemma-9b path",
               "decode_attention.cu", b1, scan_launches["B1"],
               errs["recurrentgemma-9b ring"], "recurrentgemma-9b ring"),

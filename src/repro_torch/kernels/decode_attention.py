@@ -4,8 +4,8 @@ attends over a KV cache.
 Replaces the TPU kernel `repro.kernels.decode_attention.flash_decode_gqa`
 with the hand-written CUDA kernel in `csrc/decode_attention.cu` (see the
 note there for its bound and design), and computes what the model path
-`repro.models.attention.decode_attention` needs: any S, softcap and the
-ring-buffer rule.
+`repro.models.attention.decode_attention` needs: any S, softcap, the
+ring-buffer rule and fp8 e4m3 caches (computed in q's dtype).
 
 `decode_attention` is the one entry point.  For CPU tensors it runs
 `decode_attention_plain`, the same function in plain PyTorch; for CUDA
@@ -28,11 +28,18 @@ NEG_INF = -1e30
 # reset; a run sets it to 0 and reads it to show that it went through B1.
 launches = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (q dtype, cache dtype) pairs the kernel takes; fp8 caches compute in q's
+# dtype, as the reference upcasts them.
+_PAIRS = {(torch.float32, torch.float32), (torch.float32, torch.float8_e4m3fn),
+          (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn)}
 _HEAD_DIMS = (32, 64, 128, 256)
-_MAX_GROUP_BLOCK = 8
-_TARGET_BLOCKS = 2 * 132       # two blocks for each of the H100's 132 SMs
-_MIN_KEYS_PER_SPLIT = 64
+_HEADS_PER_BLOCK = {torch.float32: 8, torch.bfloat16: 16}   # kF32Heads, kMmaHeads
+_MAX_SPLITS = 256              # kMaxSplits
+_MIN_KEYS = 128                # kMinKeys: fewest keys a split takes
+# Bytes a second the block merging the splits reads from L2, over the bytes
+# a second a split's block reads from device memory (see `plan`).
+_MERGE_RATIO = 2.0
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -90,25 +97,68 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return _launch(q, k_cache, v_cache, pos, softcap)
 
 
+@functools.lru_cache(maxsize=256)
+def plan(B: int, Hq: int, Hkv: int, S: int, D: int, q_dtype: torch.dtype,
+         cache_dtype: torch.dtype, sms: int = 132) -> int:
+    """Splits of S in the kernel's grid: enough blocks for one wave over
+    the `sms` SMs (two blocks an SM at D <= 128, one at D = 256, as the
+    kernel's shared-memory budget allows), at least 128 keys a split,
+    and no more than balance the merge.  The block that merges reads every
+    split's partial (rows x D f32) after the others read their keys
+    (S/n x D x 2 x itemsize), so n beyond
+    sqrt(S * itemsize * _MERGE_RATIO / (2 * rows)) lengthens the merge by
+    more than it shortens the reads."""
+    heads = _HEADS_PER_BLOCK[q_dtype]
+    G = Hq // Hkv
+    blocks = B * Hkv * math.ceil(G / heads)
+    per_sm = 2 if D <= 128 else 1
+    n = min(max(1, per_sm * sms // blocks), math.ceil(S / _MIN_KEYS), _MAX_SPLITS)
+    n_merge = math.sqrt(S * cache_dtype.itemsize * _MERGE_RATIO / (2 * min(G, heads)))
+    return max(1, min(n, int(n_merge)))
+
+
 @functools.cache
 def _kernel():
     fn = _build.load("decode_attention").decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> (partials f32, counters int32).  The kernel
+# leaves every counter at 0, so a workspace is zeroed once, when made;
+# keying by stream keeps two streams' launches off each other's counters.
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, n_part: int, n_counters: int):
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_counters:
+        # A smaller one is dropped: the caching allocator hands its memory
+        # only to work queued after it on this same stream.
+        n_part = max(n_part, ws[0].numel() if ws else 0)
+        n_counters = max(n_counters, ws[1].numel() if ws else 0)
+        ws = (torch.empty(n_part, dtype=torch.float32, device=device),
+              torch.zeros(n_counters, dtype=torch.int32, device=device))
+        _workspaces[key] = ws
+    return ws
 
 
 def _launch(q, k_cache, v_cache, pos, softcap):
     global launches
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(f"the decode kernel takes a cache in q's dtype; got q "
-                        f"{q.dtype}, k {k_cache.dtype}, v {v_cache.dtype} "
-                        f"(fp8 caches are not supported yet)")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the decode kernel takes float32 or bfloat16, not {q.dtype}")
+    if v_cache.dtype != k_cache.dtype or (q.dtype, k_cache.dtype) not in _PAIRS:
+        raise TypeError(f"the decode kernel takes q float32 or bfloat16 with a cache in "
+                        f"q's dtype or float8_e4m3fn; got q {q.dtype}, k {k_cache.dtype}, "
+                        f"v {v_cache.dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"the decode kernel takes head dims {_HEAD_DIMS}, not {D}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
@@ -121,20 +171,16 @@ def _launch(q, k_cache, v_cache, pos, softcap):
         raise ValueError(f"pos must be one int32 on {q.device}; got {pos.dtype} "
                          f"{tuple(pos.shape)} on {pos.device}")
 
-    G = Hq // Hkv
-    group_block = min(_MAX_GROUP_BLOCK, 1 << (G - 1).bit_length())
-    blocks = B * Hkv * math.ceil(G / group_block)
-    n_splits = max(1, min(math.ceil(_TARGET_BLOCKS / blocks),
-                          math.ceil(S / _MIN_KEYS_PER_SPLIT)))
+    n_splits = plan(B, Hq, Hkv, S, D, q.dtype, k_cache.dtype, _sm_count(q.device.index))
+    heads = _HEADS_PER_BLOCK[q.dtype]
+    n_bhg = B * Hkv * math.ceil(Hq // Hkv / heads)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counters = _workspace(q.device, stream, n_bhg * n_splits * heads * (D + 2), n_bhg)
     out = torch.empty_like(q)
-    part_ml = torch.empty((2, B * Hq * n_splits), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B * Hq * n_splits, D), dtype=torch.float32, device=q.device)
-    err = fn(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-        part_acc.data_ptr(), _DTYPE_CODES[q.dtype], B, Hq, Hkv, S, D, n_splits,
-        group_block, 1.0 / math.sqrt(D), float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+             out.data_ptr(), part.data_ptr(), counters.data_ptr(), _Q_CODES[q.dtype],
+             int(k_cache.dtype == torch.float8_e4m3fn), B, Hq, Hkv, S, D, n_splits,
+             1.0 / math.sqrt(D), float(softcap or 0.0), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError_t {err}")
     launches += 1

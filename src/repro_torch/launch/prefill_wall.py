@@ -32,7 +32,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -100,16 +99,8 @@ def _b4_wrapper_us(torch, cfg, batch, seq, dev, sync, calls=200):
 
 def run_ab(src_a: str, src_b: str, pairs: int, child_args: list[str]) -> dict:
     """Alternate fresh processes of the first form between two trees."""
-    runs = {"A": [], "B": []}
-    for i in range(pairs):
-        for tag in ("AB" if i % 2 == 0 else "BA"):
-            src = src_a if tag == "A" else src_b
-            cmd = [sys.executable, str(Path(__file__).resolve()), "--src", src, *child_args]
-            out = subprocess.run(cmd, check=True, capture_output=True, text=True).stdout
-            rec = json.loads(out.strip().splitlines()[-1])
-            rec.update(tree=tag, src=src, pair=i)
-            runs[tag].append(rec)
-            print(json.dumps(rec), flush=True)
+    from repro_torch.launch.ab import alternate
+    runs = alternate(Path(__file__).resolve(), src_a, src_b, pairs, child_args)
     summary = {tag: {"src": src, "median_of_medians_wall_ms":
                      statistics.median(r["median_wall_ms"] for r in runs[tag]),
                      "median_of_medians_cpu_ms":
@@ -133,6 +124,7 @@ def main(argv=None) -> int:
     p.add_argument("--pairs", type=int, default=10)
     args = p.parse_args(argv)
     if args.ab:
+        sys.path.insert(0, str(HERE_SRC))
         run_ab(*args.ab, args.pairs,
                ["--arch", args.arch, "--batch", str(args.batch), "--seq", str(args.seq),
                 "--reps", str(args.reps), "--device", args.device])

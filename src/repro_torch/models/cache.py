@@ -10,7 +10,10 @@ The reference writes one token with `onehot_write`, an elementwise blend
 of the whole per-layer cache (which keeps a sharded layout elementwise
 under GSPMD).  Here `write_token` writes the one slot in place with
 `index_copy_`; the cache holds the same values afterwards, and a step
-moves one token's K/V instead of the whole cache.  The caller's cache
+moves one token's K/V instead of the whole cache.  (One difference: the
+blend multiplies the whole cache by the one-hot mask, so a NaN written to
+an fp8 cache spreads in the reference over that element's slots and never
+leaves; here it stays in its slot until overwritten.)  The caller's cache
 tensors are therefore updated in place.  The recurrent states of
 `SSMCache` and `HybridCache` are likewise overwritten in place by each
 decode step.
@@ -107,12 +110,33 @@ class HybridCache:
         return self.k.shape[2]
 
 
+# The largest magnitude that rounds to a finite float8_e4m3fn: 448 is the
+# largest finite value, and 464 lies halfway to the next step, which is NaN.
+_E4M3_ROUNDS_FINITE = 464.0
+
+
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in the cache's dtype, cast as the reference casts it.  For
+    float8_e4m3fn that is NaN (with x's sign) where |x| > 464 or x = +-inf,
+    where torch's cast saturates to +-448; elsewhere the two agree."""
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn:
+        return y
+    nan = torch.where(x.signbit(), 0xFF, 0x7F).to(torch.uint8)
+    bits = torch.where(x.abs() <= _E4M3_ROUNDS_FINITE, y.view(torch.uint8), nan)
+    return bits.view(dtype)
+
+
 def write_token(cache_l: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
     """Write one token in place into a per-layer cache slice at `slot`.
 
     cache_l [B, S, ...rest]; new [B, ...rest]; slot a 0-d integer tensor on
-    the cache's device."""
-    cache_l.index_copy_(1, slot.reshape(1).long(), new[:, None].to(cache_l.dtype))
+    the cache's device.  fp8 slots are written through a uint8 view, since
+    `index_copy_` has no float8 kernel."""
+    new = to_cache_dtype(new[:, None], cache_l.dtype)
+    if cache_l.dtype == torch.float8_e4m3fn:
+        cache_l, new = cache_l.view(torch.uint8), new.view(torch.uint8)
+    cache_l.index_copy_(1, slot.reshape(1).long(), new)
 
 
 def ring_pack(ks: torch.Tensor, vs: torch.Tensor, window: int, pos_end: int):

@@ -201,8 +201,8 @@ def decode_pass(cfg: ModelConfig, blocks: dict, x: torch.Tensor,
 def _finish_cache(cfg, ks, vs, cache_len, window, pos_end):
     """Stacked per-layer K/V [L,B,S,...] -> cache object sized cache_len or
     ring-packed into `window` slots."""
-    ks = ks.to(cfg.kv_dtype)
-    vs = vs.to(cfg.kv_dtype)
+    ks = cachelib.to_cache_dtype(ks, cfg.kv_dtype)
+    vs = cachelib.to_cache_dtype(vs, cfg.kv_dtype)
     pos = torch.tensor(pos_end, dtype=torch.int32, device=ks.device)
     if window:
         k, v = cachelib.ring_pack(ks, vs, window, pos_end)

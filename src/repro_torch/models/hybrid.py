@@ -227,7 +227,8 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
 
 def _assemble_cache(cfg, states, pos_end):
     lru, conv, ks, vs = states
-    k, v = cachelib.ring_pack(ks.to(cfg.kv_dtype), vs.to(cfg.kv_dtype),
+    k, v = cachelib.ring_pack(cachelib.to_cache_dtype(ks, cfg.kv_dtype),
+                              cachelib.to_cache_dtype(vs, cfg.kv_dtype),
                               cfg.local_window, pos_end)
     pos = torch.tensor(pos_end, dtype=torch.int32, device=lru.device)
     return cachelib.HybridCache(lru, conv, k, v, pos)

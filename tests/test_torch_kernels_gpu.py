@@ -11,8 +11,12 @@ against a float64 numpy oracle of the model-path semantics
 (`repro.models.attention.decode_attention`, to which
 tests/test_torch_kernels.py holds the plain version on the CPU), at the
 shapes of tests/test_kernels.py::TestFlashDecode and with ring and
-softcap.  Tolerances: 1e-4 for f32 (reduction order), 2e-2 for bf16 (the
-plain version rounds the softmax weights to bf16, as the reference does).
+softcap, with float8_e4m3fn caches, 1 to 32 query heads a KV head, with
+and without S-splits, with garbage and fp8 NaN patterns past pos, and
+over 1,000 calls on two streams.  Tolerances by q's dtype: 1e-4 for f32
+(reduction order), 2e-2 for bf16 (the kernel rounds the unnormalized
+softmax weights to bf16, the plain version the normalized ones, as the
+reference does).
 
 B3 (SSD chunk scan) and B4 (RG-LRU scan) are held against their plain
 versions at the shapes of mamba2-130m and recurrentgemma-9b and their
@@ -105,6 +109,17 @@ def close(a, b, tol):
                                atol=tol, rtol=tol)
 
 
+def close_b1(a, b, tol):
+    """B1's outputs: elementwise as `close`, and the largest error within
+    tol times the reference's largest magnitude (a long cache averages
+    randn values down to a few hundredths, where the elementwise bound
+    alone is as large as the output)."""
+    close(a, b, tol)
+    a = a.float().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = b.float().cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+    assert np.abs(a - b).max() <= tol * np.abs(b).max()
+
+
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_full_cache(cuda, shape, dtype):
@@ -112,14 +127,14 @@ def test_full_cache(cuda, shape, dtype):
     pos = torch.tensor(shape[-1] - 1, dtype=torch.int32, device=cuda)
     out = kda.decode_attention(q, k, v, pos)
     assert out.dtype == q.dtype and out.shape == q.shape
-    close(out, kda.decode_attention_plain(q, k, v, pos), TOL[dtype])
-    close(out, oracle(q, k, v, shape[-1] - 1), TOL[dtype])
+    close_b1(out, kda.decode_attention_plain(q, k, v, pos), TOL[dtype])
+    close_b1(out, oracle(q, k, v, shape[-1] - 1), TOL[dtype])
 
 
 @pytest.mark.parametrize("pos", [0, 5, 255, 400])
 def test_masking_positions(cuda, pos):
     q, k, v = inputs(2, 4, 2, 64, 512, torch.float32, seed=pos)
-    close(kda.decode_attention(q, k, v, pos), oracle(q, k, v, pos), 1e-4)
+    close_b1(kda.decode_attention(q, k, v, pos), oracle(q, k, v, pos), 1e-4)
 
 
 def test_masked_tail_is_ignored(cuda):
@@ -140,15 +155,22 @@ def test_model_path_cases(cuda, case):
     out = kda.decode_attention(q, k, v, p, ring=ring, softcap=softcap)
     assert kda.launches == before + 1
     tol = TOL[dtype]
-    close(out, kda.decode_attention_plain(q, k, v, p, ring=ring, softcap=softcap), tol)
-    close(out, oracle(q, k, v, pos, ring, softcap), tol)
+    close_b1(out, kda.decode_attention_plain(q, k, v, p, ring=ring, softcap=softcap), tol)
+    close_b1(out, oracle(q, k, v, pos, ring, softcap), tol)
 
 
 def test_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(2, 4, 32, device=cuda)
     kv = torch.zeros(2, 8, 2, 32, device=cuda)
-    with pytest.raises(TypeError, match="fp8"):
-        kda.decode_attention(q, kv.to(torch.float8_e4m3fn), kv.to(torch.float8_e4m3fn), 0)
+    before = kda.launches
+    for cache in (torch.float8_e5m2, torch.float16):
+        with pytest.raises(TypeError, match="float8_e4m3fn"):
+            kda.decode_attention(q, kv.to(cache), kv.to(cache), 0)
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        kda.decode_attention(q.half(), kv.half(), kv.half(), 0)
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        kda.decode_attention(q, kv, kv.to(torch.float8_e4m3fn), 0)
+    assert kda.launches == before
     with pytest.raises(ValueError, match="head dims"):
         kda.decode_attention(torch.zeros(2, 4, 48, device=cuda),
                              torch.zeros(2, 8, 2, 48, device=cuda),
@@ -157,6 +179,97 @@ def test_rejects_what_the_kernel_does_not_take(cuda):
         kda.decode_attention(q, kv.transpose(1, 2).contiguous().transpose(1, 2), kv, 0)
     with pytest.raises(ValueError, match="pos"):
         kda.decode_attention(q, kv, kv, torch.tensor(0, device=cuda))
+
+
+FP8_CASES = [               # (B, Hq, Hkv, D, S, pos, ring, softcap): G = 1, 2, 8, 16, 32
+    (4, 32, 32, 128, 80, 57, False, 0.0),
+    (2, 4, 2, 32, 80, 79, False, 0.0),
+    (1, 64, 8, 128, 4096, 3000, False, 0.0),
+    (4, 16, 1, 256, 2048, 2100, True, 0.0),
+    (2, 32, 1, 64, 300, 200, False, 3.0),
+]
+
+
+def fp8_inputs(B, Hq, Hkv, D, S, qdtype, seed=0):
+    q, k, v = inputs(B, Hq, Hkv, D, S, getattr(torch, qdtype), seed=seed)
+    return q, k.float().to(torch.float8_e4m3fn), v.float().to(torch.float8_e4m3fn)
+
+
+@pytest.mark.parametrize("qdtype", list(TOL))
+@pytest.mark.parametrize("case", FP8_CASES)
+def test_fp8_cache(cuda, case, qdtype):
+    """An fp8 e4m3 cache computes in q's type, as the reference upcasts it:
+    within q's tolerance of the plain version and of the oracle over the
+    cache's values."""
+    B, Hq, Hkv, D, S, pos, ring, softcap = case
+    q, k, v = fp8_inputs(B, Hq, Hkv, D, S, qdtype, seed=S)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = kda.launches
+    out = kda.decode_attention(q, k, v, p, ring=ring, softcap=softcap)
+    assert kda.launches == before + 1 and out.dtype == q.dtype
+    close_b1(out, kda.decode_attention_plain(q, k, v, p, ring=ring, softcap=softcap), TOL[qdtype])
+    close_b1(out, oracle(q, k.float(), v.float(), pos, ring, softcap), TOL[qdtype])
+
+
+@pytest.mark.parametrize("G", [1, 2, 8, 16, 32])
+@pytest.mark.parametrize("cache", ["same", "float8_e4m3fn"])
+@pytest.mark.parametrize("qdtype", list(TOL))
+@pytest.mark.parametrize("n_splits", [1, 7])
+def test_groups_and_splits(cuda, monkeypatch, G, cache, qdtype, n_splits):
+    """Query heads a KV head from 1 to 32 (two head tiles of the
+    tensor-core path, four of the f32 path), S cut into 1 or up to 7
+    splits (128 keys or more each) whatever the plan; the pos values give
+    one split, three with a ragged last one, and six over a full cache."""
+    monkeypatch.setattr(kda, "plan", lambda *a, **kw: n_splits)
+    B, Hkv, D, S = 2, 2, 128, 700
+    q, k, v = inputs(B, G * Hkv, Hkv, D, S, getattr(torch, qdtype), seed=G)
+    if cache != "same":
+        k, v = k.float().to(torch.float8_e4m3fn), v.float().to(torch.float8_e4m3fn)
+    for pos in (40, 333, S - 1):
+        p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        out = kda.decode_attention(q, k, v, p)
+        close_b1(out, kda.decode_attention_plain(q, k, v, p), TOL[qdtype])
+        close_b1(out, oracle(q, k.float(), v.float(), pos), TOL[qdtype])
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "float8_e4m3fn"])
+def test_garbage_and_fp8_nan_past_pos_never_read(cuda, cache):
+    """Keys past pos set to +-448 or to fp8 NaN bit patterns (bf16: NaN):
+    the output is bit-identical, with and without splits."""
+    q, k, v = inputs(4, 16, 1, 256, 2048, torch.bfloat16, seed=9)
+    k, v = k.float().to(getattr(torch, cache)), v.float().to(getattr(torch, cache))
+    for pos in (0, 100, 1500):
+        k2, v2, k3, v3 = k.clone(), v.clone(), k.clone(), v.clone()
+        k2[:, pos + 1:] = 448.0
+        v2[:, pos + 1:] = -448.0
+        if cache == "float8_e4m3fn":
+            k3.view(torch.uint8)[:, pos + 1:] = 0x7F
+            v3.view(torch.uint8)[:, pos + 1:] = 0xFF
+        else:
+            k3[:, pos + 1:] = float("nan")
+            v3[:, pos + 1:] = float("nan")
+        a = kda.decode_attention(q, k, v, pos)
+        assert torch.equal(a, kda.decode_attention(q, k2, v2, pos))
+        assert torch.equal(a, kda.decode_attention(q, k3, v3, pos))
+
+
+def test_back_to_back_calls_on_two_streams(cuda):
+    """1,000 calls that split S and merge through the per-stream counters,
+    500 on each of two streams at once: every output equals the first (a
+    counter left unreset, or shared by the streams, would break one)."""
+    q, k, v = inputs(4, 16, 1, 256, 2048, torch.bfloat16, seed=3)
+    p = torch.tensor(2047, dtype=torch.int32, device=cuda)
+    assert kda.plan(4, 16, 1, 2048, 256, torch.bfloat16, torch.bfloat16) > 1
+    ref = kda.decode_attention(q, k, v, p)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(500):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(kda.decode_attention(q, k, v, p))
+    torch.cuda.synchronize()
+    assert sum(torch.equal(o, ref) for os_ in outs for o in os_) == 1000
 
 
 def test_engine_on_the_card_matches_the_cpu(cuda):
@@ -305,8 +418,8 @@ def test_decode_attention_head_dim_256(cuda, dtype, pos):
     q, k, v = inputs(2, 16, 1, 256, 2048, getattr(torch, dtype), seed=pos)
     p = torch.tensor(pos, dtype=torch.int32, device=cuda)
     out = kda.decode_attention(q, k, v, p, ring=True)
-    close(out, kda.decode_attention_plain(q, k, v, p, ring=True), TOL[dtype])
-    close(out, oracle(q, k, v, pos, ring=True), TOL[dtype])
+    close_b1(out, kda.decode_attention_plain(q, k, v, p, ring=True), TOL[dtype])
+    close_b1(out, oracle(q, k, v, pos, ring=True), TOL[dtype])
 
 
 @pytest.mark.parametrize("arch,expect", [     # launches of (B3, B4, B1)
