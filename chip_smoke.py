@@ -10,8 +10,10 @@ Phases, each of which must pass:
   3. check    each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: B1 (q f32 within 1e-4, q bf16 within
               2e-2, elementwise and of the output's largest magnitude) at
-              the llama2 shapes and recurrentgemma-9b's head dim 256 ring,
-              with bf16 and float8_e4m3fn caches, keys past pos overwritten
+              the llama2 shapes, the MoE path's (granite-moe-3b-a800m,
+              mixtral-8x7b), falcon-7b's MQA (71 query heads on one KV
+              head) and recurrentgemma-9b's head dim 256 ring, with bf16
+              and float8_e4m3fn caches, keys past pos overwritten
               (the output bit-identical); B2 for every family branch and
               both decode modes at m = 1,000,037 (f32 rtol 1e-5, f64 rtol
               1e-12); B3 at mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16 within 2e-2 of
@@ -55,7 +57,19 @@ Phases, each of which must pass:
               the limit must fail), B1's launches counted over its fp8
               decode steps alone; then the device's busy share of
               full-width decode steps and prefills and the kernels' shares
-              of it (profiler).
+              of it (profiler);
+  8. moe      the MoE family through the same `serve`: granite-moe-3b-a800m
+              at full width and depth and mixtral-8x7b at full width cut to
+              8 of 32 layers (DEPTH_CUTS: 47 B parameters fit no 80 GB
+              card), random bf16 weights, characterized up to 16 tokens,
+              24 queries routed and served, and one KV-on generate of each
+              outside the router; B1's launches must equal the attention
+              layers x decode steps.  Then the reduced mixtral, granite and
+              deepseek-v3 (both MLA decode modes) on the card against the
+              CPU, full-width decode against a re-forward with the device's
+              busy share of a decode step (granite, mixtral, and
+              deepseek-v3-671b cut to 4 layers, 3 dense + 1 MoE, in both
+              MLA decode modes, where B1 must launch 0 times).
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's sources beside it, or when any phase fails.  The last line is
@@ -81,6 +95,11 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 34e12}
 SERVE_ARCHS = ["llama2-7b", "llama2-13b"]
 SERVE_CHAR_MAX_TOKENS = 32      # the llama2 path's characterization grid top
 SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
+MOE_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b"]
+MOE_CHAR_MAX_TOKENS = 16        # the MoE path's characterization grid top
+# Depth cuts of the MoE phase, at full width: mixtral-8x7b's 32 layers
+# (47 B parameters, ~94 GB in bf16) and deepseek-v3-671b's 61 fit no 80 GB card.
+DEPTH_CUTS = {"mixtral-8x7b": 8, "deepseek-v3-671b": 4}
 SERVE_QUERIES = 24
 # one config per family branch of the pass-cost surface
 COST_ARCHS = ["llama2-7b", "mixtral-8x7b", "mistral-7b", "mamba2-130m", "recurrentgemma-9b",
@@ -140,6 +159,12 @@ def decode_shapes(torch, serve_mod):
         "llama2-13b serve": (4, 40, 40, 128, s_serve, bf, bf),
         "llama2-70b GQA": (4, 64, 8, 128, 4096, bf, bf),
         "llama2-70b GQA fp8": (4, 64, 8, 128, 4096, bf, f8),
+        "granite-moe serve": (4, 24, 8, 64, s_serve, bf, bf),
+        "granite-moe serve fp8": (4, 24, 8, 64, s_serve, bf, f8),
+        "mixtral serve": (4, 32, 8, 128, s_serve, bf, bf),
+        "mixtral serve fp8": (4, 32, 8, 128, s_serve, bf, f8),
+        "falcon-7b MQA": (4, 71, 1, 64, s_serve, bf, bf),
+        "falcon-7b MQA fp8": (4, 71, 1, 64, s_serve, bf, f8),
         "recurrentgemma-9b ring": (4, 16, 1, 256, 2048, bf, bf),
         "recurrentgemma-9b ring fp8": (4, 16, 1, 256, 2048, bf, f8),
         "reduced": (2, 4, 2, 32, s_serve, torch.float32, torch.float32),
@@ -347,11 +372,14 @@ def time_decode(torch, kda, shapes) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def expected_decode_launches(serve_mod, out) -> int:
+def expected_decode_launches(serve_mod, out, get_config=None) -> int:
     """Layers x max_new summed over the served batches, batched as `serve`
-    batches them; the KV-off characterization never decodes."""
-    from repro_torch.configs import get_config
+    batches them; the KV-off characterization never decodes.  Layers are
+    those of the configs `serve` ran (`get_config`: the registry's, or the
+    MoE phase's depth cut)."""
     from repro_torch.data import token_batches
+    if get_config is None:
+        from repro_torch.configs import get_config
     n = 0
     for arch, reqs in out["plan"].per_model.items():
         if not reqs:
@@ -405,22 +433,24 @@ def run_serve(torch, kda, serve_mod) -> int:
     return launches
 
 
-def compare_reduced(torch, arch, prompt_len, cache_dtype="") -> None:
+def compare_reduced(torch, arch, prompt_len, cache_dtype="", **fields) -> None:
     """A reduced f32 model on the card (through the kernels) against the
     same weights on the CPU (plain versions): greedy tokens identical,
     prefill and decode logits within 1e-4.  With an fp8 cache
     (`cache_dtype`) the CPU runs KV-on too: the cache's rounding is the
-    model's, and both sides must make it alike."""
+    model's, and both sides must make it alike.  `fields` replace config
+    fields (deepseek-v3's `mla_absorb`)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import get_api
     from repro_torch.serving import InferenceEngine
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**fields)
     if cache_dtype:
         cfg = cfg.replace(cache_dtype=cache_dtype)
     api = get_api(cfg)
-    label = f"{arch}{' ' + cache_dtype + ' cache' if cache_dtype else ''}"
+    label = (f"{arch}{' ' + cache_dtype + ' cache' if cache_dtype else ''}"
+             + "".join(f" {k}={v}" for k, v in fields.items()))
     cpu = api.init_params(cfg, torch.Generator().manual_seed(1), torch.device("cpu"))
     gpu = _map(cpu, lambda t: t.to("cuda"))
     toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, prompt_len)).astype(np.int32)
@@ -448,32 +478,117 @@ def compare_reduced(torch, arch, prompt_len, cache_dtype="") -> None:
     check(worst <= 1e-4, f"{label}: logits differ between card and CPU")
 
 
-def check_full_width(torch, serve_mod, arch):
+def check_full_width(torch, serve_mod, arch, tol=0.1):
     """Full width: decode logits finite and close to a full re-forward of
     the same tokens.  Returns (engine, cache, last token) for profiling."""
+    eng = serve_mod.build_engine(arch, kv_cache=True, device="cuda")
+    cache, token = check_decode_vs_reforward(torch, eng.api, eng.cfg, eng.params, tol=tol)
+    return eng, cache, token
+
+
+# In f32 a MoE token's experts may differ between a decode step and a
+# re-forward only where the re-forward's router logits tie to within this
+# (their drift is ~1e-6).  In bf16 router logits are a bf16 product, so
+# exact ties are common, and rounding through the layers moves them by
+# hundredths to a few tenths: there the flips are reported.
+F32_TIE_GAP = 1e-3
+
+
+class RouteLog:
+    """While active, records each MoE dispatch's router output (experts
+    chosen, probabilities) as `repro_torch.models.moe.route` returns it."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig, self.calls = moe, moe.route, []
+
+        def route(cfg, router, xt):
+            probs, gates, eidx = self.orig(cfg, router, xt)
+            self.calls.append((eidx, probs))
+            return probs, gates, eidx
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+
+
+def route_flips(torch, dec_calls, ref_calls, seq_len):
+    """Per token of a decode step: whether its experts differ from those
+    the re-forward chose at the same (last) position in some MoE layer;
+    the re-forward's logit gap between the K-th and (K+1)-th expert in the
+    first layer where a token's differ (past it the token's hidden state
+    has diverged, and later layers route it apart at any margin); and the
+    count of (token, layer) pairs that differ."""
+    check(len(dec_calls) == len(ref_calls), "decode and re-forward ran different MoE layers")
+    first_gap, n_diff = {}, 0
+    for (e_d, _), (e_r, p_r) in zip(dec_calls, ref_calls):
+        B, K = e_d.shape
+        last = torch.arange(B, device=e_d.device) * seq_len + seq_len - 1
+        e_r, p_r = e_r[last], p_r[last]
+        diff = (e_d.sort(-1).values != e_r.sort(-1).values).any(-1)
+        top = p_r.sort(-1, descending=True).values
+        gap = top[:, K - 1].log() - top[:, K].log()
+        for b in diff.nonzero().flatten().tolist():
+            n_diff += 1
+            first_gap.setdefault(b, gap[b].item())
+    flipped = torch.tensor([b in first_gap for b in range(B)], device=e_d.device)
+    return flipped, [first_gap[b] for b in sorted(first_gap)], n_diff
+
+
+def check_decode_vs_reforward(torch, api, cfg, params, tol=0.1, tie_gap=None):
+    """Prefill 12 tokens, decode 4: the last decode logits finite and
+    within relative L2 `tol` of a prefill of all 16 (0.1 in bf16, which
+    rounds at other points in the two paths, through every layer; None:
+    printed, not held).  Under
+    MoE the two passes' expert choices are compared in every MoE layer; a
+    token whose experts differ somewhere is left out of the logits'
+    comparison, and with `tie_gap` must first differ where the re-forward's
+    K-th and (K+1)-th router logits lie closer than that.  Returns (cache,
+    last token)."""
     import numpy as np
     from repro_torch.models.common import padded_vocab
-    eng = serve_mod.build_engine(arch, kv_cache=True, device="cuda")
-    cfg, api = eng.cfg, eng.api
+    B, S = 4, 16
     toks = torch.as_tensor(np.random.default_rng(2).integers(
-        1, cfg.vocab_size, (4, 16)).astype(np.int32), device="cuda")
+        1, cfg.vocab_size, (B, S)).astype(np.int32), device="cuda")
     with torch.no_grad():
-        _, cache = api.prefill(cfg, eng.params, {"tokens": toks[:, :12]}, cache_len=48)
-        for t in range(12, 16):
-            logits, cache = api.decode_step(cfg, eng.params, cache, {"token": toks[:, t]})
-        full, _ = api.prefill(cfg, eng.params, {"tokens": toks}, cache_len=16)
+        _, cache = api.prefill(cfg, params, {"tokens": toks[:, :12]}, cache_len=48)
+        for t in range(12, S - 1):
+            _, cache = api.decode_step(cfg, params, cache, {"token": toks[:, t]})
+        with RouteLog() as dec:
+            logits, cache = api.decode_step(cfg, params, cache, {"token": toks[:, S - 1]})
+        with RouteLog() as ref:
+            full, _ = api.prefill(cfg, params, {"tokens": toks}, cache_len=S)
     torch.cuda.synchronize()
     shape = tuple(logits.shape)
     # columns past the vocabulary pad it to a multiple of 128, masked to -1e30
-    logits, full = logits[:, :cfg.vocab_size], full[:, :cfg.vocab_size]
+    logits, full = logits[:, :cfg.vocab_size].float(), full[:, :cfg.vocab_size].float()
     finite = bool(torch.isfinite(logits).all())
+    per_token = ((logits - full).norm(dim=-1) / full.norm(dim=-1)).tolist()
     rel = ((logits - full).norm() / full.norm()).item()
-    print(f"[outputs] {cfg.name} decode logits {shape} finite={finite}; "
-          f"relative L2 difference from a full re-forward={rel:.4f} (tol 0.1)")
+    kept = torch.ones(B, dtype=torch.bool, device="cuda")
+    gaps, n_diff = [], 0
+    if dec.calls:
+        flipped, gaps, n_diff = route_flips(torch, dec.calls, ref.calls, S)
+        kept = ~flipped
+    n_kept = int(kept.sum())
+    rel_kept = ((logits[kept] - full[kept]).norm() / full[kept].norm()).item() if n_kept else 0.0
+    print(f"[outputs] {cfg.name} decode logits {shape} finite={finite}; relative L2 "
+          f"difference from a full re-forward={rel:.4g}, per token "
+          f"{', '.join(f'{r:.4g}' for r in per_token)}"
+          + (f"; {len(dec.calls)} MoE layers x {B} tokens, expert sets differing at "
+             f"{n_diff}, in {len(gaps)} tokens (re-forward logit gap where each first "
+             f"differs: {', '.join(f'{g:.4g}' for g in gaps)}"
+             f"{f'; tol {tie_gap:g}' if tie_gap else ''}), over the {n_kept} tokens "
+             f"without: {rel_kept:.4g}" if dec.calls else "")
+          + (f" (tol {tol:g})" if tol else " (not held: see check_moe_outputs)"))
     check(finite and shape == (4, padded_vocab(cfg.vocab_size)), f"{cfg.name}: logits bad")
-    # bf16 rounds at other points in the two paths, through every layer
-    check(rel <= 0.1, f"{cfg.name}: full-width decode disagrees with the re-forward")
-    return eng, cache, toks[:, 15]
+    check(tie_gap is None or all(g < tie_gap for g in gaps),
+          f"{cfg.name}: decode and re-forward chose other experts at a clear router margin")
+    check(tol is None or rel_kept <= tol,
+          f"{cfg.name}: full-width decode disagrees with the re-forward")
+    return cache, toks[:, S - 1]
 
 
 # B1's kernels (bf16 and f32 paths) in the profiler's names.
@@ -969,6 +1084,187 @@ def check_scan_outputs(torch, serve_mod) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The MoE fleet's serve path
+# ---------------------------------------------------------------------------
+
+
+class DepthCut:
+    """While active, the serve module's config lookup gives the archs of
+    DEPTH_CUTS at full width with that many layers; others unchanged."""
+
+    def __init__(self, serve_mod):
+        self.mod = serve_mod
+        self.orig = serve_mod.get_config
+
+    def lookup(self, arch):
+        cfg = self.orig(arch)
+        return cfg.replace(n_layers=DEPTH_CUTS[arch]) if arch in DEPTH_CUTS else cfg
+
+    def describe(self, arch) -> str:
+        from repro_torch.models import get_api
+        cfg, full = self.lookup(arch), self.orig(arch)
+        cut = (f"{cfg.n_layers} of {full.n_layers} layers (depth cut)"
+               if cfg.n_layers != full.n_layers else f"all {cfg.n_layers} layers")
+        return (f"{arch}: d_model {cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, "
+                f"{cut}, {get_api(cfg).count_params(cfg) / 1e9:.2f} B parameters "
+                f"({get_api(full).count_params(full) / 1e9:.2f} B at full depth)")
+
+    def __enter__(self):
+        self.mod.get_config = self.lookup
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.get_config = self.orig
+
+
+def run_moe_serve(torch, kda, serve_mod) -> int:
+    """serve() of granite-moe-3b-a800m and mixtral-8x7b (DEPTH_CUTS), then
+    one KV-on generate of each outside the router.  Every engine decode
+    call must launch B1 once per layer and every prefill never; over the
+    run B1's launches must equal the served batches' layers x max_new plus
+    the generates'.  Returns B1's launches over the run."""
+    import numpy as np
+    from repro_torch.serving import InferenceEngine
+    try:
+        nvml = Nvml()
+    except (OSError, PhaseError) as e:
+        nvml = None
+        print(f"[moe-serve] NVML energy: not measured ({e})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cut = DepthCut(serve_mod)
+    for arch in MOE_ARCHS:
+        print(f"[moe-serve] {cut.describe(arch)}")
+    with cut, EngineCalls(InferenceEngine, {"B1": kda}) as calls:
+        kda.launches = 0
+        e0 = nvml.millijoules() if nvml else None
+        t0 = time.perf_counter()
+        out = serve_mod.serve(MOE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
+                              char_max_tokens=MOE_CHAR_MAX_TOKENS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        e1 = nvml.millijoules() if nvml else None
+        peak = torch.cuda.max_memory_allocated()
+        expected = expected_decode_launches(serve_mod, out, cut.lookup)
+        for arch in MOE_ARCHS:      # B1 launches whatever the routing
+            eng = serve_mod.build_engine(arch, kv_cache=True, device="cuda")
+            toks = np.random.default_rng(3).integers(1, eng.cfg.vocab_size, (4, 40))
+            gen, _ = eng.generate({"tokens": toks.astype(np.int32)}, 8)
+            check(gen.shape == (4, 8), f"{arch}: generate returned {gen.shape}")
+            expected += 8 * eng.cfg.n_layers
+            del eng
+        torch.cuda.synchronize()
+        launches = kda.launches
+
+    for prof in out["profiles"]:
+        print(f"[moe-serve] {prof.name}: energy R2={prof.energy.r_squared} "
+              f"runtime R2={prof.runtime.r_squared}")
+        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared),
+              f"{prof.name}: fit is not finite")
+    for arch, t in out["totals"].items():
+        print(f"[moe-serve] {arch}: queries={t['queries']} tokens={t['tokens']} "
+              f"measured_s={t['runtime_s']} host-model_J={t['energy_j']}")
+    print(f"[moe-serve] serve() wall s={wall} (characterized up to {MOE_CHAR_MAX_TOKENS} tokens)")
+    if nvml:
+        print(f"[moe-serve] NVML J over serve() (characterize + serve)={(e1 - e0) / 1e3}")
+    print(f"[moe-serve] max_memory_allocated GiB over serve()={peak / 2**30}")
+    n_routed = sum(len(rs) for rs in out["plan"].per_model.values())
+    check(n_routed == SERVE_QUERIES, f"plan routed {n_routed} of {SERVE_QUERIES} queries")
+    check(sum(t["queries"] for t in out["totals"].values()) == SERVE_QUERIES,
+          "served query count differs from the plan")
+    check(all(t["tokens"] > 0 and t["runtime_s"] > 0 for t in out["totals"].values()),
+          "a served model reports no tokens or no time")
+
+    bad = []
+    for (arch, kv, kind), n in sorted(calls.calls.items()):
+        want = cut.lookup(arch).n_layers if kind == "decode" else 0
+        got = calls.launches[(arch, kv, kind, "B1")]
+        print(f"[moe-serve] {arch} KV-{'on' if kv else 'off'} {kind}: {n} calls, "
+              f"B1 launches {got}, expected {n * want}")
+        if got != n * want:
+            bad.append(f"{arch} kv={kv} {kind}")
+    check(not bad, f"B1 launches differ from layers x decode steps: {bad}")
+    check(launches == sum(calls.launches.values()), "B1 launched outside the engines' calls")
+    for arch in MOE_ARCHS:
+        check(calls.launches[(arch, True, "decode", "B1")] > 0,
+              f"B1 never launched in {arch}'s decode")
+    print(f"[moe-serve] B1 launches={launches} expected={expected} "
+          f"(attention layers x decode steps: served batches and the generates)")
+    check(launches == expected, f"B1 launched {launches} times, expected {expected}")
+    return launches
+
+
+def check_cut_depth(torch, cfg, tol, tie_gap=None, **fields_per_run) -> None:
+    """`cfg` (full width, few layers) with weights drawn on the card in its
+    dtype: decode against a re-forward (`check_decode_vs_reforward`), once
+    per config fields in `fields_per_run` (label -> dict), else once."""
+    from repro_torch.models import get_api
+    api = get_api(cfg)
+    params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             torch.device("cuda"))
+    for label, fields in (fields_per_run or {"": {}}).items():
+        print(f"[outputs] {cfg.name} in {cfg.param_dtype} at full width, {cfg.n_layers} "
+              f"layers ({cfg.n_dense_layers} dense){' ' + label if label else ''}:")
+        check_decode_vs_reforward(torch, api, cfg.replace(**fields), params, tol=tol,
+                                  tie_gap=tie_gap)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_moe_outputs(torch, kda, serve_mod) -> None:
+    """Reduced MoE models on the card against the CPU; then at full width
+    (DEPTH_CUTS) decode against a re-forward and the device's share of a
+    decode step, for granite-moe-3b-a800m and mixtral-8x7b (B1 in every
+    layer) and deepseek-v3-671b in both MLA decode modes (no B1: its
+    launches over those decodes must be 0).  mixtral's 8-layer bf16
+    comparison is printed, not held: with random weights its stack
+    amplifies bf16 rounding (tokens whose experts agree in every layer
+    drift 0.05-0.09 apart, a flipped top-2 expert moves a token by ~1), so
+    it is held at 2 layers, in bf16 (0.1) and in f32 (1e-3), as deepseek-v3
+    is in f32 at 1 dense + 1 MoE layer."""
+    compare_reduced(torch, "mixtral-8x7b-reduced", 21)
+    compare_reduced(torch, "granite-moe-3b-a800m-reduced", 21)
+    compare_reduced(torch, "deepseek-v3-671b-reduced", 21, mla_absorb=True)
+    compare_reduced(torch, "deepseek-v3-671b-reduced", 21, mla_absorb=False)
+    cut = DepthCut(serve_mod)
+    print(f"[outputs] {cut.describe('deepseek-v3-671b')}")
+    with cut:
+        for arch in MOE_ARCHS:
+            eng, cache, token = check_full_width(
+                torch, serve_mod, arch, tol=None if arch == "mixtral-8x7b" else 0.1)
+            decode_breakdown(torch, eng.api, eng.cfg, eng.params, cache, token, B1_KEYS,
+                             "B1 (one kernel a call)")
+            del eng, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        mixtral2 = cut.lookup("mixtral-8x7b").replace(n_layers=2)
+        check_cut_depth(torch, mixtral2, tol=0.1)
+        check_cut_depth(torch, mixtral2.replace(param_dtype="float32"), tol=1e-3,
+                        tie_gap=F32_TIE_GAP)
+        eng = serve_mod.build_engine("deepseek-v3-671b", kv_cache=True, device="cuda")
+        deepseek2 = cut.lookup("deepseek-v3-671b").replace(n_layers=2, n_dense_layers=1,
+                                                            param_dtype="float32")
+    kda.launches = 0
+    for absorb in (True, False):
+        cfg = eng.cfg.replace(mla_absorb=absorb)
+        print(f"[outputs] deepseek-v3-671b mla_absorb={absorb}:")
+        cache, token = check_decode_vs_reforward(torch, eng.api, cfg, eng.params)
+        decode_breakdown(torch, eng.api, cfg, eng.params, cache, token, B1_KEYS,
+                         "B1 (none expected: MLA attends in plain PyTorch)")
+    launches = kda.launches
+    print(f"[outputs] deepseek-v3-671b B1 launches over both MLA decodes={launches} (expected 0)")
+    check(launches == 0, f"B1 launched {launches} times on the MLA path")
+    del eng, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    # f32 at full width, 1 dense + 1 MoE layer (~49 GB)
+    check_cut_depth(torch, deepseek2, tol=1e-3, tie_gap=F32_TIE_GAP,
+                    **{f"mla_absorb={a}": {"mla_absorb": a} for a in (True, False)})
+
+
+# ---------------------------------------------------------------------------
 # Kernel B2 and the analytic path
 # ---------------------------------------------------------------------------
 
@@ -1208,6 +1504,10 @@ def main() -> int:
     scan_launches = run_scan_serve(torch, {"B3": kss, "B4": krg, "B1": kda}, serve_mod)
     check_scan_outputs(torch, serve_mod)
     print(f"[phase] mamba2 + recurrentgemma path (serve + outputs) s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    moe_launches = run_moe_serve(torch, kda, serve_mod)
+    check_moe_outputs(torch, kda, serve_mod)
+    print(f"[phase] MoE path (serve + outputs) s={time.perf_counter() - t0}")
 
     def entry(name, source, replaces, n, err, shape):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
@@ -1226,6 +1526,9 @@ def main() -> int:
         entry("decode_attention (B1) at head dim 256, recurrentgemma-9b path",
               "decode_attention.cu", b1, scan_launches["B1"],
               errs["recurrentgemma-9b ring"], "recurrentgemma-9b ring"),
+        entry("decode_attention (B1), MoE path (granite-moe-3b-a800m, mixtral-8x7b)",
+              "decode_attention.cu", b1, moe_launches,
+              max(errs["granite-moe serve"], errs["mixtral serve"]), "mixtral serve"),
         entry("pass_costs (B2, analytic pass-cost surface)", "cost_batch.cu",
               "src/repro/kernels/cost_batch.py:347", analytic_launches,
               cost_errs["float64"], "B2 float64"),

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --fleet llama2-7b,llama2-13b \
         --queries 24 --zeta 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve --fleet mamba2-130m,recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --fleet mixtral-8x7b-reduced,granite-moe-3b-a800m-reduced --device cpu
 
 Port of `repro.launch.serve`:
 
@@ -14,9 +16,11 @@ Port of `repro.launch.serve`:
    production path, whose decode attention is kernel B1), reporting
    measured energy/runtime per model.
 
-Every ported family serves: dense (llama2, mistral), ssm (mamba2-130m,
-whose prefill runs kernel B3) and hybrid (recurrentgemma-9b: kernel B4 in
-prefill, B1 at head dim 256 in decode).
+Every ported family serves: dense (llama2, mistral), moe (mixtral-8x7b,
+granite-moe-3b-a800m: B1 in every decode step; deepseek-v3-671b's MLA
+attends in plain PyTorch), ssm (mamba2-130m, whose prefill runs kernel B3)
+and hybrid (recurrentgemma-9b: kernel B4 in prefill, B1 at head dim 256 in
+decode).
 
 Weights are random, drawn on the device from a seeded torch.Generator in
 the config's dtype.  Runs on CUDA unless `device="cpu"` is passed.

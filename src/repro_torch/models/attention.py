@@ -1,11 +1,11 @@
 """Attention primitives: chunked full-sequence attention (never materializes
-the [S, S] score matrix for long sequences) and single-token decode
-attention over a cache.
+the [S, S] score matrix for long sequences), single-token decode attention
+over a cache, and DeepSeek-V3's multi-head latent attention (MLA).
 
-Port of `repro.models.attention`.  Full attention is plain tensor code, as
-XLA ran it in the reference.  Decode attention, the serving hot spot, goes
-to kernel B1 (`repro_torch.kernels.decode_attention`) on CUDA tensors and
-to its plain version on CPU tensors.
+Port of `repro.models.attention`.  Full attention and MLA are plain tensor
+code, as XLA ran them in the reference.  Decode attention, the serving hot
+spot, goes to kernel B1 (`repro_torch.kernels.decode_attention`) on CUDA
+tensors and to its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -100,3 +100,74 @@ def decode_attention(
     """
     return _decode_kernel.decode_attention(q, k_cache, v_cache, pos, ring=ring,
                                            softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def mla_full_attention(
+    q_nope: torch.Tensor,   # [B,S,H,Dn]
+    q_rope: torch.Tensor,   # [B,S,H,Dr]
+    k_nope: torch.Tensor,   # [B,S,H,Dn]
+    k_rope: torch.Tensor,   # [B,S,Dr] (shared across heads)
+    value: torch.Tensor,    # [B,S,H,Dv]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk_q: int = 512,
+) -> torch.Tensor:
+    """Full-sequence MLA attention (decoupled rope scores).  Scores in f32,
+    as the reference's `preferred_element_type`.  Returns [B,S,H,Dv]."""
+    B, Sq, H, Dn = q_nope.shape
+    Dr = q_rope.shape[-1]
+    Sk = k_nope.shape[1]
+    scale = 1.0 / ((Dn + Dr) ** 0.5)
+    k_pos = torch.arange(Sk, device=q_nope.device)
+
+    def block(q_n, q_r, q_pos):
+        s = torch.einsum("bqhd,bkhd->bhqk", q_n.float(), k_nope.float())
+        s = s + torch.einsum("bqhr,bkr->bhqk", q_r.float(), k_rope.float())
+        s = s * scale
+        m = torch.ones((q_n.shape[1], Sk), dtype=torch.bool, device=q_n.device)
+        if causal:
+            m &= k_pos[None, :] <= q_pos[:, None]
+        if window:
+            m &= k_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(m, s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", w.to(value.dtype), value)
+
+    if Sq <= chunk_q or Sq % chunk_q != 0:
+        return block(q_nope, q_rope, torch.arange(Sq, device=q_nope.device))
+    outs = []
+    for i in range(Sq // chunk_q):
+        sl = slice(i * chunk_q, (i + 1) * chunk_q)
+        outs.append(block(q_nope[:, sl], q_rope[:, sl],
+                          i * chunk_q + torch.arange(chunk_q, device=q_nope.device)))
+    return torch.cat(outs, dim=1)
+
+
+def mla_decode_absorbed(
+    q_latent: torch.Tensor,  # [B,H,Ckv]  (q_nope absorbed through W_uk)
+    q_rope: torch.Tensor,    # [B,H,Dr]
+    c_kv: torch.Tensor,      # [B,S,Ckv]  latent cache (already rms-normed)
+    k_rope: torch.Tensor,    # [B,S,Dr]
+    w_uv: torch.Tensor,      # [H,Ckv,Dv] (up-projection for V)
+    pos: torch.Tensor,
+    scale: float,
+) -> torch.Tensor:
+    """Absorbed-matmul MLA decode: scores and values computed in latent
+    space, O(S·Ckv) cache traffic instead of O(S·H·Dn) expansion.
+    Returns [B, H, Dv]."""
+    c_kv = c_kv.to(q_latent.dtype)
+    k_rope = k_rope.to(q_rope.dtype)
+    s = torch.einsum("bhc,bkc->bhk", q_latent.float(), c_kv.float())
+    s = s + torch.einsum("bhr,bkr->bhk", q_rope.float(), k_rope.float())
+    s = s * scale
+    valid = torch.arange(c_kv.shape[1], device=c_kv.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_latent = torch.einsum("bhk,bkc->bhc", w.to(c_kv.dtype), c_kv)
+    return torch.einsum("bhc,hcd->bhd", o_latent, w_uv)

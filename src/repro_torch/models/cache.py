@@ -1,6 +1,7 @@
 """Decode-time caches.
 
-Port of the attention, SSM and hybrid caches of `repro.models.cache`.  `pos` is a 0-d int32
+Port of the attention, MLA latent, SSM and hybrid caches of
+`repro.models.cache`.  `pos` is a 0-d int32
 tensor on the cache's device: the absolute position of the *next* token to
 be written, so a decode loop never reads it back to the host.
 Sliding-window caches are ring buffers of size `window`; keys are stored
@@ -62,6 +63,27 @@ class WindowKVCache:
     @property
     def window(self) -> int:
         return self.k.shape[2]
+
+
+@dataclasses.dataclass
+class MLACache:
+    """DeepSeek-V3 latent cache: c_kv [L, B, S, kv_lora], k_rope [L, B, S,
+    rope_dim].  Written like the KV caches (`write_token`, values cast by
+    `to_cache_dtype`)."""
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(n_layers, batch, cache_len, kv_lora, rope_dim, dtype, device) -> "MLACache":
+        return MLACache(
+            torch.zeros((n_layers, batch, cache_len, kv_lora), dtype=dtype, device=device),
+            torch.zeros((n_layers, batch, cache_len, rope_dim), dtype=dtype, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+
+    @property
+    def cache_len(self) -> int:
+        return self.c_kv.shape[2]
 
 
 @dataclasses.dataclass

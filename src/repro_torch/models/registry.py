@@ -8,8 +8,8 @@
 
 Port of `repro.models.registry`.  Every family has its parameter
 definitions, so `count_params` and `active_params` work for all six (the
-analytic cost model needs them).  The dense, ssm and hybrid families run;
-the moe, encdec and vlm forward passes are not ported yet, and their
+analytic cost model needs them).  The dense, moe, ssm and hybrid families
+run; the encdec and vlm forward passes are not ported yet, and their
 `prefill`, `init_cache` and `decode_step` raise NotImplementedError
 naming the ROADMAP item that ports them.
 """
@@ -39,8 +39,7 @@ def _not_ported(family: str, what: str) -> Callable:
     def call(*args, **kwargs):
         raise NotImplementedError(
             f"the {family} family's {what} is not ported to repro_torch yet: "
-            f"ROADMAP queue 1 (moe/encdec/vlm forward passes, with fp8 caches "
-            f"in kernel B1)")
+            f"ROADMAP queue 1, item 2 (encdec and vlm forward passes)")
     return call
 
 

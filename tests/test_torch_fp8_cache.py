@@ -8,7 +8,9 @@ the reference's cast gives, where torch's cast saturates), the prefill
 caches (equal), the decode logits of four reduced models over several
 steps (1e-4, f32 models: the caches round alike, the rest is reduction
 order) and the plain B1 over an fp8 cache (1e-4 with q in f32, 2e-2 with
-q in bf16, the gates of tests/test_torch_kernels.py).  On a card the
+q in bf16, the gates of tests/test_torch_kernels.py).  At llama2-7b's
+widths (bf16, two layers) the fp8-vs-bf16 cache gap of the port equals the
+reference's within the bf16 noise between the two packages.  On a card the
 kernel's fp8 path is checked by tests/test_torch_kernels_gpu.py and
 `chip_smoke.py`.
 """
@@ -161,3 +163,47 @@ class TestPlainKernel:
         assert ours.dtype == tq.dtype
         np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32),
                                    atol=tol, rtol=tol)
+
+
+class TestFullWidthGap:
+    def test_fp8_gap_matches_the_reference_at_llama2_7b_width(self):
+        """llama2-7b's widths (d_model 4096, 32 x 128 heads, d_ff 11008,
+        bf16) at 2 layers, the vocabulary cut to 4096 (mean |delta logit|
+        is a mean per logit, so fewer head columns do not change what it
+        measures), weights carried by value.  Per decode step, the gap is
+        the mean |delta logit| between the fp8-cache and the bf16-cache
+        decode of the same tokens.  The port's gap (plain B1 on the CPU)
+        must equal the reference's within the bf16 noise between the two
+        packages: the mean |delta logit| of their bf16-cache logits.  The
+        gap itself must stand well above that noise.  With `-s` it prints
+        the gaps per step."""
+        widths = dict(n_layers=2, vocab_size=4096)
+        jcfg = jget_config("llama2-7b").replace(**widths)
+        jparams = jget_api(jcfg).init_params(jcfg, jax.random.PRNGKey(0))
+        cfg = get_config("llama2-7b").replace(**widths)
+        params = from_jax_params(cfg, jax.tree.map(np.asarray, jparams), "cpu")
+        toks = np.random.default_rng(5).integers(1, 4096, (4, 16)).astype(np.int32)
+        logits = {}
+        for cd in ("bfloat16", F8):
+            jc_, c_ = jcfg.replace(cache_dtype=cd), cfg.replace(cache_dtype=cd)
+            japi, api = jget_api(jc_), get_api(c_)
+            _, jc = jax.jit(lambda p, b: japi.prefill(jc_, p, b, cache_len=48))(
+                jparams, {"tokens": jnp.asarray(toks[:, :12])})
+            _, c = api.prefill(c_, params, {"tokens": torch.as_tensor(toks[:, :12])},
+                               cache_len=48)
+            jstep = jax.jit(lambda p, c, t: japi.decode_step(jc_, p, c, {"token": t}))
+            logits[cd] = ([], [])
+            for t in range(12, 16):
+                jl, jc = jstep(jparams, jc, jnp.asarray(toks[:, t]))
+                pl, c = api.decode_step(c_, params, c, {"token": torch.as_tensor(toks[:, t])})
+                logits[cd][0].append(np.asarray(jl, np.float32))
+                logits[cd][1].append(pl.float().numpy())
+        for step in range(4):
+            ref_bf, port_bf = (x[step] for x in logits["bfloat16"])
+            ref_f8, port_f8 = (x[step] for x in logits[F8])
+            ref_gap, port_gap = np.abs(ref_f8 - ref_bf).mean(), np.abs(port_f8 - port_bf).mean()
+            noise = np.abs(port_bf - ref_bf).mean()
+            print(f"step {step}: fp8-vs-bf16 cache gap, reference {ref_gap:.5f}, port "
+                  f"{port_gap:.5f}; bf16 noise between the packages {noise:.5f}")
+            assert abs(port_gap - ref_gap) <= noise, (step, ref_gap, port_gap, noise)
+            assert ref_gap > 3 * noise, (step, ref_gap, noise)

@@ -52,12 +52,16 @@ from repro_torch.serving import InferenceEngine
 
 pytestmark = pytest.mark.gpu
 
-FLASH_SHAPES = [
+FLASH_SHAPES = [             # (B, Hq, Hkv, D, S)
     (2, 8, 2, 128, 512),
     (1, 16, 8, 128, 1024),
     (4, 4, 1, 64, 256),
     (2, 12, 4, 128, 384),
-    (1, 71, 71, 64, 256),
+    (1, 71, 71, 64, 256),       # 71 heads, G = 1 (not falcon-7b: that is MQA)
+    (4, 71, 1, 64, 80),         # falcon-7b MQA: G = 71, four 16-head tiles and 7
+    (1, 71, 1, 64, 2048),
+    (4, 24, 8, 64, 80),         # granite-moe-3b-a800m, G = 3
+    (4, 32, 8, 128, 80),        # mixtral-8x7b, G = 4
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MODEL_CASES = [             # (B, Hq, Hkv, D, S, pos, ring, softcap, dtype)
@@ -181,12 +185,16 @@ def test_rejects_what_the_kernel_does_not_take(cuda):
         kda.decode_attention(q, kv, kv, torch.tensor(0, device=cuda))
 
 
-FP8_CASES = [               # (B, Hq, Hkv, D, S, pos, ring, softcap): G = 1, 2, 8, 16, 32
+FP8_CASES = [               # (B, Hq, Hkv, D, S, pos, ring, softcap): G = 1 to 71
     (4, 32, 32, 128, 80, 57, False, 0.0),
     (2, 4, 2, 32, 80, 79, False, 0.0),
     (1, 64, 8, 128, 4096, 3000, False, 0.0),
     (4, 16, 1, 256, 2048, 2100, True, 0.0),
     (2, 32, 1, 64, 300, 200, False, 3.0),
+    (4, 71, 1, 64, 80, 79, False, 0.0),         # falcon-7b MQA
+    (1, 71, 1, 64, 2048, 1500, False, 0.0),
+    (4, 24, 8, 64, 80, 79, False, 0.0),         # granite-moe-3b-a800m
+    (4, 32, 8, 128, 80, 79, False, 0.0),        # mixtral-8x7b
 ]
 
 
@@ -448,6 +456,32 @@ def test_scan_models_on_the_card_match_the_cpu(cuda, arch, expect):
     out, _ = InferenceEngine(cfg, move(cpu), kv_cache=False, device=cuda).generate(
         {"tokens": toks}, 8)
     np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("arch,absorb,b1_per_step", [
+    ("mixtral-8x7b-reduced", False, 2),             # 2 attention layers through B1
+    ("granite-moe-3b-a800m-reduced", False, 2),
+    ("deepseek-v3-671b-reduced", True, 0),          # MLA: plain PyTorch, no B1
+    ("deepseek-v3-671b-reduced", False, 0),
+])
+def test_moe_models_on_the_card_match_the_cpu(cuda, arch, absorb, b1_per_step):
+    """Reduced f32 MoE models: greedy tokens on the card equal the CPU's in
+    both KV modes, and the KV-on run launches B1 once per attention layer
+    and decode step (none under MLA)."""
+    cfg = get_config(arch).replace(mla_absorb=absorb)
+    cpu = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict) else v.to(cuda) for k, v in tree.items()}
+
+    toks = np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 21)).astype(np.int32)
+    ref, _ = InferenceEngine(cfg, cpu, kv_cache=True, device="cpu").generate({"tokens": toks}, 8)
+    for kv in (True, False):
+        before = kda.launches
+        out, _ = InferenceEngine(cfg, move(cpu), kv_cache=kv, device=cuda).generate(
+            {"tokens": toks}, 8)
+        np.testing.assert_array_equal(out, ref)
+        assert kda.launches - before == (b1_per_step * 8 if kv else 0)
 
 
 # ---------------------------------------------------------------------------

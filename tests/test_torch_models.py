@@ -26,7 +26,7 @@ from repro_torch.models import attention, cache, common, get_api
 from repro_torch.weights import from_jax_params
 
 FLEET = ["llama2-7b-reduced", "llama2-13b-reduced", "llama2-70b-reduced",
-         "mistral-7b-reduced",
+         "mistral-7b-reduced", "falcon-7b-reduced", "falcon-40b-reduced",
          # assigned dense archs: QKV bias (qwen2.5), qk-norm (qwen3)
          "qwen2.5-14b-reduced", "qwen3-1.7b-reduced", "llama3.2-3b-reduced",
          "deepseek-67b-reduced"]
@@ -76,17 +76,20 @@ class TestConfigs:
         assert get_api(get_config(arch)).count_params(get_config(arch)) == ref
 
     def test_unported_families_and_archs_raise(self):
-        """Every assigned arch resolves; the moe, encdec and vlm families
-        count their parameters as the reference does, and their forward
-        passes raise NotImplementedError naming the ROADMAP."""
+        """Every assigned arch resolves; every family counts its parameters
+        as the reference does; the encdec and vlm forward passes raise
+        NotImplementedError naming the ROADMAP (the moe family runs:
+        tests/test_torch_moe.py)."""
         for arch in ASSIGNED_ARCHS:
             assert get_config(arch).name == arch
             assert get_config(arch + "-reduced").family == get_config(arch).family
         for arch in ("mixtral-8x7b", "deepseek-v3-671b", "seamless-m4t-large-v2",
                      "internvl2-2b"):
             cfg, jcfg = get_config(arch), jget_config(arch)
+            assert get_api(cfg).count_params(cfg) == jget_api(jcfg).count_params(jcfg)
+        for arch in ("seamless-m4t-large-v2", "internvl2-2b"):
+            cfg = get_config(arch)
             api = get_api(cfg)
-            assert api.count_params(cfg) == jget_api(jcfg).count_params(jcfg)
             for call in (lambda: api.prefill(cfg, {}, {"tokens": None}, cache_len=8),
                          lambda: api.decode_step(cfg, {}, None, {"token": None}),
                          lambda: api.init_cache(cfg, 1, 8, device="cpu")):
