@@ -44,8 +44,9 @@ Phases, each of which must pass:
               mamba2-130m and recurrentgemma-9b (up to 64 tokens), where
               every prefill must launch B3 once per SSM layer or B4 once per
               recurrent layer, and every decode step B1 once per attention
-              layer; one KV-on generate of each outside the router makes
-              every kernel launch whatever the routing;
+              layer (characterized up to 32 tokens: SCAN_CHAR_MAX_TOKENS);
+              one KV-on generate of each outside the router makes every
+              kernel launch whatever the routing;
   7. outputs  reduced models on the card (through the kernels) against the
               same models on the CPU (plain versions), llama2-7b and
               recurrentgemma-9b also with float8_e4m3fn KV caches, and
@@ -69,7 +70,20 @@ Phases, each of which must pass:
               CPU, full-width decode against a re-forward with the device's
               busy share of a decode step (granite, mixtral, and
               deepseek-v3-671b cut to 4 layers, 3 dense + 1 MoE, in both
-              MLA decode modes, where B1 must launch 0 times).
+              MLA decode modes, where B1 must launch 0 times);
+  9. encdec + vlm  seamless-m4t-large-v2 (24 encoder + 24 decoder layers
+              over 4,096 frames) and internvl2-2b (24 layers, 256 patches)
+              at full width and depth, random bf16 weights, with seeded
+              frames and patches: `serve()` passes tokens only, so the same
+              characterize (KV off, up to 16 tokens, through `measure_fn`'s
+              zero frames/patches) -> fit -> route (24 queries, zeta 0.5) ->
+              serve (KV on, batch 4) pipeline is built from the package's
+              parts; every engine call's B1 launches must be 2 x dec_layers
+              (self + cross-attention) a seamless decode step, n_layers an
+              internvl2 one, and 0 a prefill.  Then both reduced models on
+              the card against the CPU, full-width decode against a
+              re-forward, and the device's busy share of a decode step of
+              each and of a seamless KV-off forward.
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's sources beside it, or when any phase fails.  The last line is
@@ -95,11 +109,14 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 34e12}
 SERVE_ARCHS = ["llama2-7b", "llama2-13b"]
 SERVE_CHAR_MAX_TOKENS = 32      # the llama2 path's characterization grid top
 SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
+SCAN_CHAR_MAX_TOKENS = 32       # the scan path's grid top (64 before phase 9 came)
 MOE_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b"]
 MOE_CHAR_MAX_TOKENS = 16        # the MoE path's characterization grid top
 # Depth cuts of the MoE phase, at full width: mixtral-8x7b's 32 layers
 # (47 B parameters, ~94 GB in bf16) and deepseek-v3-671b's 61 fit no 80 GB card.
 DEPTH_CUTS = {"mixtral-8x7b": 8, "deepseek-v3-671b": 4}
+ENCDEC_VLM_ARCHS = ["seamless-m4t-large-v2", "internvl2-2b"]
+ENCDEC_VLM_CHAR_MAX_TOKENS = 16
 SERVE_QUERIES = 24
 # one config per family branch of the pass-cost surface
 COST_ARCHS = ["llama2-7b", "mixtral-8x7b", "mistral-7b", "mamba2-130m", "recurrentgemma-9b",
@@ -148,10 +165,19 @@ class Nvml:
 # ---------------------------------------------------------------------------
 
 
+def served_cache_len(serve_mod, extra=0) -> int:
+    """The KV-on engine's cache length for the served workload's longest
+    query, `extra` positions (vlm patches) ahead of its tokens."""
+    span = serve_mod.SERVE_WORKLOAD["max_in"] + serve_mod.SERVE_WORKLOAD["max_out"] + extra
+    return max(serve_mod.SERVE_BUCKET,
+               math.ceil(span / serve_mod.SERVE_BUCKET) * serve_mod.SERVE_BUCKET)
+
+
 def decode_shapes(torch, serve_mod):
-    s_serve = max(serve_mod.SERVE_BUCKET, math.ceil(
-        (serve_mod.SERVE_WORKLOAD["max_in"] + serve_mod.SERVE_WORKLOAD["max_out"])
-        / serve_mod.SERVE_BUCKET) * serve_mod.SERVE_BUCKET)
+    from repro_torch.configs import get_config
+    s_serve = served_cache_len(serve_mod)
+    s_vlm = served_cache_len(serve_mod, get_config("internvl2-2b").n_patches)
+    n_frames = get_config("seamless-m4t-large-v2").n_frames
     bf, f8 = torch.bfloat16, torch.float8_e4m3fn
     return {   # name -> (B, Hq, Hkv, D, S, q dtype, cache dtype)
         "llama2-7b serve": (4, 32, 32, 128, s_serve, bf, bf),
@@ -167,6 +193,10 @@ def decode_shapes(torch, serve_mod):
         "falcon-7b MQA fp8": (4, 71, 1, 64, s_serve, bf, f8),
         "recurrentgemma-9b ring": (4, 16, 1, 256, 2048, bf, bf),
         "recurrentgemma-9b ring fp8": (4, 16, 1, 256, 2048, bf, f8),
+        "seamless cross": (4, 16, 16, 64, n_frames, bf, bf),
+        "seamless cross fp8": (4, 16, 16, 64, n_frames, bf, f8),
+        "internvl2 serve": (4, 16, 8, 128, s_vlm, bf, bf),
+        "internvl2 serve fp8": (4, 16, 8, 128, s_vlm, bf, f8),
         "reduced": (2, 4, 2, 32, s_serve, torch.float32, torch.float32),
         "reduced fp8": (2, 4, 2, 32, s_serve, torch.float32, f8),
     }
@@ -433,17 +463,29 @@ def run_serve(torch, kda, serve_mod) -> int:
     return launches
 
 
+def frontend_batch(torch, cfg, B, seed, device="cuda") -> dict:
+    """Random f32 frames (encdec) or patches (vlm) for a batch of B, drawn
+    on `device` from a seeded generator, in the shapes `measure_fn`'s zero
+    inputs have; {} for the token-only families."""
+    from repro_torch.serving.engine import frontend_inputs
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=g, device=device)
+            for k, v in frontend_inputs(cfg, B).items()}
+
+
 def compare_reduced(torch, arch, prompt_len, cache_dtype="", **fields) -> None:
     """A reduced f32 model on the card (through the kernels) against the
     same weights on the CPU (plain versions): greedy tokens identical,
     prefill and decode logits within 1e-4.  With an fp8 cache
     (`cache_dtype`) the CPU runs KV-on too: the cache's rounding is the
     model's, and both sides must make it alike.  `fields` replace config
-    fields (deepseek-v3's `mla_absorb`)."""
+    fields (deepseek-v3's `mla_absorb`).  encdec and vlm models get the
+    same random frames or patches on both sides."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import get_api
     from repro_torch.serving import InferenceEngine
+    from repro_torch.serving.engine import prefix_positions
 
     cfg = get_config(arch).replace(**fields)
     if cache_dtype:
@@ -454,18 +496,21 @@ def compare_reduced(torch, arch, prompt_len, cache_dtype="", **fields) -> None:
     cpu = api.init_params(cfg, torch.Generator().manual_seed(1), torch.device("cpu"))
     gpu = _map(cpu, lambda t: t.to("cuda"))
     toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, prompt_len)).astype(np.int32)
-    a, _ = InferenceEngine(cfg, gpu, kv_cache=True, device="cuda").generate({"tokens": toks}, 8)
+    extra = frontend_batch(torch, cfg, 2, seed=1, device="cpu")
+    a, _ = InferenceEngine(cfg, gpu, kv_cache=True, device="cuda").generate(
+        {"tokens": toks, **extra}, 8)
     b, _ = InferenceEngine(cfg, cpu, kv_cache=bool(cache_dtype), device="cpu").generate(
-        {"tokens": toks}, 8)
+        {"tokens": toks, **extra}, 8)
     print(f"[outputs] {label} greedy tokens, card KV-on vs CPU "
           f"KV-{'on' if cache_dtype else 'off'}: identical={np.array_equal(a, b)}")
     check(np.array_equal(a, b), f"{label}: greedy tokens differ between card and CPU")
     worst = 0.0
     with torch.no_grad():
-        lg, cg = api.prefill(cfg, gpu, {"tokens": torch.as_tensor(toks, device="cuda")},
-                             cache_len=prompt_len + 20)
-        lc, cc = api.prefill(cfg, cpu, {"tokens": torch.as_tensor(toks)},
-                             cache_len=prompt_len + 20)
+        batch = {"tokens": torch.as_tensor(toks), **extra}
+        cache_len = prefix_positions(cfg) + prompt_len + 20
+        lg, cg = api.prefill(cfg, gpu, {k: v.to("cuda") for k, v in batch.items()},
+                             cache_len=cache_len)
+        lc, cc = api.prefill(cfg, cpu, batch, cache_len=cache_len)
         if cache_dtype:
             check(cg.k.dtype == cfg.kv_dtype, f"{label}: cache is {cg.k.dtype}")
         worst = max(worst, (lg.cpu() - lc).abs().max().item())
@@ -549,17 +594,21 @@ def check_decode_vs_reforward(torch, api, cfg, params, tol=0.1, tie_gap=None):
     last token)."""
     import numpy as np
     from repro_torch.models.common import padded_vocab
+    from repro_torch.serving.engine import prefix_positions
     B, S = 4, 16
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         1, cfg.vocab_size, (B, S)).astype(np.int32), device="cuda")
+    extra = frontend_batch(torch, cfg, B, seed=2)
+    P = prefix_positions(cfg)
     with torch.no_grad():
-        _, cache = api.prefill(cfg, params, {"tokens": toks[:, :12]}, cache_len=48)
+        _, cache = api.prefill(cfg, params, {"tokens": toks[:, :12], **extra},
+                               cache_len=P + 48)
         for t in range(12, S - 1):
             _, cache = api.decode_step(cfg, params, cache, {"token": toks[:, t]})
         with RouteLog() as dec:
             logits, cache = api.decode_step(cfg, params, cache, {"token": toks[:, S - 1]})
         with RouteLog() as ref:
-            full, _ = api.prefill(cfg, params, {"tokens": toks}, cache_len=S)
+            full, _ = api.prefill(cfg, params, {"tokens": toks, **extra}, cache_len=P + S)
     torch.cuda.synchronize()
     shape = tuple(logits.shape)
     # columns past the vocabulary pad it to a multiple of 128, masked to -1e30
@@ -770,9 +819,13 @@ def decode_breakdown(torch, api, cfg, params, cache, token, kernel_keys, kernel_
 
 def prefill_breakdown(torch, api, cfg, params, tokens, kernel_keys, kernel_label,
                       steps=4) -> None:
-    """The same for a full-width prefill of `tokens`."""
+    """The same for a full-width prefill of `tokens` (with random frames
+    or patches for encdec and vlm)."""
+    from repro_torch.serving.engine import prefix_positions
+    batch = {"tokens": tokens, **frontend_batch(torch, cfg, tokens.shape[0], seed=3)}
     wall_ms, events, why = _profile(
-        torch, lambda: api.prefill(cfg, params, {"tokens": tokens}, cache_len=tokens.shape[1]),
+        torch, lambda: api.prefill(cfg, params, batch,
+                                   cache_len=prefix_positions(cfg) + tokens.shape[1]),
         steps)
     _breakdown(f"{cfg.name} prefill, B={tokens.shape[0]} S={tokens.shape[1]}", wall_ms,
                events, why, steps, kernel_keys, kernel_label)
@@ -1015,7 +1068,8 @@ def run_scan_serve(torch, counters, serve_mod) -> dict:
     with EngineCalls(InferenceEngine, counters) as calls:
         e0 = nvml.millijoules() if nvml else None
         t0 = time.perf_counter()
-        out = serve_mod.serve(SCAN_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5, device="cuda")
+        out = serve_mod.serve(SCAN_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
+                              char_max_tokens=SCAN_CHAR_MAX_TOKENS, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         e1 = nvml.millijoules() if nvml else None
@@ -1036,7 +1090,8 @@ def run_scan_serve(torch, counters, serve_mod) -> dict:
     for arch, t in out["totals"].items():
         print(f"[scan-serve] {arch}: queries={t['queries']} tokens={t['tokens']} "
               f"measured_s={t['runtime_s']} host-model_J={t['energy_j']}")
-    print(f"[scan-serve] serve() wall s={wall}")
+    print(f"[scan-serve] serve() wall s={wall} "
+          f"(characterized up to {SCAN_CHAR_MAX_TOKENS} tokens)")
     if nvml:
         print(f"[scan-serve] NVML J over serve() (characterize + serve)={(e1 - e0) / 1e3}")
     print(f"[scan-serve] max_memory_allocated GiB={torch.cuda.max_memory_allocated() / 2**30}")
@@ -1262,6 +1317,201 @@ def check_moe_outputs(torch, kda, serve_mod) -> None:
     # f32 at full width, 1 dense + 1 MoE layer (~49 GB)
     check_cut_depth(torch, deepseek2, tol=1e-3, tie_gap=F32_TIE_GAP,
                     **{f"mla_absorb={a}": {"mla_absorb": a} for a in (True, False)})
+
+
+# ---------------------------------------------------------------------------
+# The encdec + vlm fleet, served through the engine
+# ---------------------------------------------------------------------------
+
+
+def b1_per_call(cfg, kind) -> int:
+    """B1's launches in one engine call: an encdec decode step attends
+    twice a decoder layer (its own cache, then the encoder memory), a vlm
+    decode step once a layer; a prefill (KV on or off) never."""
+    if kind != "decode":
+        return 0
+    return 2 * cfg.dec_layers if cfg.family == "encdec" else cfg.n_layers
+
+
+def characterize_with_frontends(serve_mod, arch):
+    """`serve_mod.characterize_fleet`'s campaign for one encdec or vlm model:
+    KV off, batch 2, up to ENCDEC_VLM_CHAR_MAX_TOKENS, each (τin, τout)'s
+    first call left out, through `measure_fn` (zero frames or patches)."""
+    from repro_torch.core.characterize import fit_profile_from_trials, run_campaign
+    from repro_torch.serving.engine import measure_fn
+    engine = serve_mod.build_engine(arch, kv_cache=False, device="cuda")
+    measure = measure_fn(lambda: engine, 2, engine.cfg.vocab_size)
+    warmed = set()
+
+    def warm_measure(tin, tout):
+        if (tin, tout) not in warmed:
+            warmed.add((tin, tout))
+            measure(tin, tout)
+        return measure(tin, tout)
+
+    trials = run_campaign(arch, warm_measure,
+                          serve_mod.campaign_settings(ENCDEC_VLM_CHAR_MAX_TOKENS))
+    return fit_profile_from_trials(arch, serve_mod.accuracy_ak(arch), trials)
+
+
+def serve_with_frontends(torch, serve_mod, archs, *, seed=0) -> dict:
+    """`serve_mod.serve` for models whose prefill also takes frames or
+    patches: characterize, fit, route SERVE_QUERIES Alpaca-like queries at
+    zeta 0.5, and serve each model's batches (batch 4, KV on) with seeded
+    random frames/patches.  Returns {"plan", "totals", "profiles"}."""
+    import numpy as np
+    from repro_torch.data import alpaca_like_workload, token_batches
+    from repro_torch.data.workloads import WorkloadSpec
+    from repro_torch.serving import EnergyAwareRouter
+    from repro_torch.serving.requests import Request
+
+    profiles = []
+    for arch in archs:
+        profiles.append(characterize_with_frontends(serve_mod, arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+    router = EnergyAwareRouter(profiles, zeta=0.5)
+    queries = alpaca_like_workload(WorkloadSpec(n_queries=SERVE_QUERIES,
+                                                **serve_mod.SERVE_WORKLOAD))
+    plan = router.route([Request(i, np.zeros(q[0], np.int32), q[1])
+                         for i, q in enumerate(queries)])
+    engines = {a: serve_mod.build_engine(a, kv_cache=True, device="cuda") for a in archs}
+    totals = {}
+    for n, (arch, rs) in enumerate(plan.per_model.items()):
+        if not rs:
+            continue
+        eng = engines[arch]
+        e_j = t_s = 0.0
+        n_tok = 0
+        batches = list(token_batches([(r.tau_in, r.max_new_tokens) for r in rs], 4,
+                                     eng.cfg.vocab_size))
+        for i, b in enumerate(batches):
+            max_new = int(b["tau_out"].max())
+            batch = {"tokens": b["tokens"],
+                     **frontend_batch(torch, eng.cfg, 4, seed=seed + 100 * n + i)}
+            _, stats = eng.generate(batch, max_new)
+            e_j += stats.energy_j
+            t_s += stats.runtime_s
+            n_tok += int(b["lengths"].sum()) + max_new * 4
+        totals[arch] = {"queries": len(rs), "energy_j": e_j, "runtime_s": t_s,
+                        "tokens": n_tok, "batches": len(batches)}
+    return {"plan": plan, "totals": totals, "profiles": profiles}
+
+
+def run_encdec_vlm_serve(torch, kda, serve_mod) -> dict:
+    """serve_with_frontends over ENCDEC_VLM_ARCHS, then one KV-on generate
+    of each outside the router.  Every engine call's B1 launches must be
+    `b1_per_call`'s.  Returns arch -> B1's launches in its engines' calls."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api
+    from repro_torch.serving import InferenceEngine
+    try:
+        nvml = Nvml()
+    except (OSError, PhaseError) as e:
+        nvml = None
+        print(f"[encdec-vlm] NVML energy: not measured ({e})")
+    for arch in ENCDEC_VLM_ARCHS:
+        cfg = get_config(arch)
+        layers = (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers over "
+                  f"{cfg.n_frames} frames" if cfg.family == "encdec"
+                  else f"{cfg.n_layers} layers, {cfg.n_patches} patches")
+        print(f"[encdec-vlm] {arch}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} x {cfg.head_dim_}, {layers}, "
+              f"{get_api(cfg).count_params(cfg) / 1e9:.3f} B parameters ({cfg.param_dtype})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with EngineCalls(InferenceEngine, {"B1": kda}) as calls:
+        kda.launches = 0
+        e0 = nvml.millijoules() if nvml else None
+        t0 = time.perf_counter()
+        out = serve_with_frontends(torch, serve_mod, ENCDEC_VLM_ARCHS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        e1 = nvml.millijoules() if nvml else None
+        peak = torch.cuda.max_memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arch in ENCDEC_VLM_ARCHS:      # B1 launches whatever the routing
+            eng = serve_mod.build_engine(arch, kv_cache=True, device="cuda")
+            toks = np.random.default_rng(3).integers(1, eng.cfg.vocab_size, (4, 40))
+            gen, _ = eng.generate({"tokens": toks.astype(np.int32),
+                                   **frontend_batch(torch, eng.cfg, 4, seed=3)}, 8)
+            check(gen.shape == (4, 8), f"{arch}: generate returned {gen.shape}")
+            del eng
+        torch.cuda.synchronize()
+        launches = kda.launches
+
+    for prof in out["profiles"]:
+        print(f"[encdec-vlm] {prof.name}: energy R2={prof.energy.r_squared} "
+              f"runtime R2={prof.runtime.r_squared}")
+        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared),
+              f"{prof.name}: fit is not finite")
+    for arch, t in out["totals"].items():
+        print(f"[encdec-vlm] {arch}: queries={t['queries']} batches={t['batches']} "
+              f"tokens={t['tokens']} measured_s={t['runtime_s']} host-model_J={t['energy_j']}")
+    print(f"[encdec-vlm] serve wall s={wall} (characterize + fit + route + serve; "
+          f"characterized up to {ENCDEC_VLM_CHAR_MAX_TOKENS} tokens)")
+    if nvml:
+        print(f"[encdec-vlm] NVML J over the serve wall={(e1 - e0) / 1e3}")
+    print(f"[encdec-vlm] max_memory_allocated GiB over the serve wall={peak / 2**30}")
+    n_routed = sum(len(rs) for rs in out["plan"].per_model.values())
+    check(n_routed == SERVE_QUERIES, f"plan routed {n_routed} of {SERVE_QUERIES} queries")
+    check(sum(t["queries"] for t in out["totals"].values()) == SERVE_QUERIES,
+          "served query count differs from the plan")
+    check(all(t["tokens"] > 0 and t["runtime_s"] > 0 for t in out["totals"].values()),
+          "a served model reports no tokens or no time")
+
+    bad = []
+    per_arch = collections.Counter()
+    for (arch, kv, kind), n in sorted(calls.calls.items()):
+        want = b1_per_call(get_config(arch), kind)
+        got = calls.launches[(arch, kv, kind, "B1")]
+        per_arch[arch] += got
+        print(f"[encdec-vlm] {arch} KV-{'on' if kv else 'off'} {kind}: {n} calls, "
+              f"B1 launches {got}, expected {n * want} ({want} a call)")
+        if got != n * want:
+            bad.append(f"{arch} kv={kv} {kind}")
+    check(not bad, f"B1 launches differ from b1_per_call: {bad}")
+    check(launches == sum(per_arch.values()), "B1 launched outside the engines' calls")
+    for arch in ENCDEC_VLM_ARCHS:
+        check(calls.launches[(arch, True, "decode", "B1")] > 0,
+              f"B1 never launched in {arch}'s decode")
+    print(f"[encdec-vlm] B1 launches={launches}: {dict(per_arch)}")
+    return dict(per_arch)
+
+
+def check_encdec_vlm_outputs(torch, kda, serve_mod) -> None:
+    """The reduced models on the card against the CPU; at full width,
+    decode against a re-forward (relative L2 0.1, the dense cell's limit),
+    B1's launches over one decode step, and the device's busy share of a
+    decode step (B=4) of each model and of a seamless KV-off forward (B=2,
+    16 tokens, 4,096 frames encoded again)."""
+    compare_reduced(torch, "seamless-m4t-large-v2-reduced", 21)
+    compare_reduced(torch, "internvl2-2b-reduced", 21)
+    for arch in ENCDEC_VLM_ARCHS:
+        eng, cache, token = check_full_width(torch, serve_mod, arch)
+        cfg = eng.cfg
+        with torch.no_grad():
+            kda.launches = 0
+            _, cache = eng.api.decode_step(cfg, eng.params, cache, {"token": token})
+            torch.cuda.synchronize()
+            n = kda.launches
+        print(f"[outputs] {arch} B1 launches over one decode step={n} "
+              f"(expected {b1_per_call(cfg, 'decode')})")
+        check(n == b1_per_call(cfg, "decode"), f"{arch}: B1 launched {n} times in a step")
+        label = ("B1 (self + cross-attention, two a decoder layer)" if cfg.family == "encdec"
+                 else "B1 (one a layer, G = 2)")
+        decode_breakdown(torch, eng.api, cfg, eng.params, cache, token, B1_KEYS, label)
+        if cfg.family == "encdec":
+            tokens = torch.randint(1, cfg.vocab_size, (2, 16), device="cuda",
+                                   generator=torch.Generator(device="cuda").manual_seed(4))
+            prefill_breakdown(torch, eng.api, cfg, eng.params, tokens, B1_KEYS,
+                              "B1 (none expected in a forward)")
+        del eng, cache
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1508,6 +1758,10 @@ def main() -> int:
     moe_launches = run_moe_serve(torch, kda, serve_mod)
     check_moe_outputs(torch, kda, serve_mod)
     print(f"[phase] MoE path (serve + outputs) s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    ev_launches = run_encdec_vlm_serve(torch, kda, serve_mod)
+    check_encdec_vlm_outputs(torch, kda, serve_mod)
+    print(f"[phase] encdec + vlm path (serve + outputs) s={time.perf_counter() - t0}")
 
     def entry(name, source, replaces, n, err, shape):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
@@ -1529,6 +1783,13 @@ def main() -> int:
         entry("decode_attention (B1), MoE path (granite-moe-3b-a800m, mixtral-8x7b)",
               "decode_attention.cu", b1, moe_launches,
               max(errs["granite-moe serve"], errs["mixtral serve"]), "mixtral serve"),
+        entry("decode_attention (B1), encdec cross-attention (seamless-m4t-large-v2; "
+              "launches: self + cross)", "decode_attention.cu", b1,
+              ev_launches["seamless-m4t-large-v2"],
+              max(errs["seamless cross"], errs["seamless cross fp8"]), "seamless cross"),
+        entry("decode_attention (B1), vlm path (internvl2-2b)", "decode_attention.cu", b1,
+              ev_launches["internvl2-2b"],
+              max(errs["internvl2 serve"], errs["internvl2 serve fp8"]), "internvl2 serve"),
         entry("pass_costs (B2, analytic pass-cost surface)", "cost_batch.cu",
               "src/repro/kernels/cost_batch.py:347", analytic_launches,
               cost_errs["float64"], "B2 float64"),

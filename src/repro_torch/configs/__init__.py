@@ -1,10 +1,8 @@
 """Config registry: the repo's ten assigned architectures and the paper's
-7-model zoo by --arch id, plus the reduced smoke variants ('<id>-reduced').
+7-model zoo by --arch id, plus the reduced smoke variants ('<id>-reduced')
+and the assigned input shapes.
 
-Port of `repro.configs` (without `configs/shapes.py`, which comes with the
-launch tooling, ROADMAP queue 1).  Every config resolves here; whether
-its family can run a forward pass is the registry's business
-(`repro_torch.models.registry`)."""
+Port of `repro.configs`."""
 
 from __future__ import annotations
 
@@ -17,6 +15,12 @@ from repro_torch.configs.paper_zoo import (  # noqa: F401
     TABLE1,
 )
 from repro_torch.configs.reduced import reduce_config  # noqa: F401
+from repro_torch.configs.shapes import (  # noqa: F401
+    INPUT_SHAPES,
+    InputShape,
+    long_context_note,
+    token_specs,
+)
 from repro_torch.models.common import ModelConfig
 
 # arch id -> module (one file per assigned architecture)

@@ -16,11 +16,17 @@ Port of `repro.launch.serve`:
    production path, whose decode attention is kernel B1), reporting
    measured energy/runtime per model.
 
-Every ported family serves: dense (llama2, mistral), moe (mixtral-8x7b,
-granite-moe-3b-a800m: B1 in every decode step; deepseek-v3-671b's MLA
-attends in plain PyTorch), ssm (mamba2-130m, whose prefill runs kernel B3)
-and hybrid (recurrentgemma-9b: kernel B4 in prefill, B1 at head dim 256 in
-decode).
+`serve()` takes the token-only families: dense (llama2, mistral), moe
+(mixtral-8x7b, granite-moe-3b-a800m: B1 in every decode step;
+deepseek-v3-671b's MLA attends in plain PyTorch), ssm (mamba2-130m, whose
+prefill runs kernel B3) and hybrid (recurrentgemma-9b: kernel B4 in
+prefill, B1 at head dim 256 in decode).  Like the reference's, it passes
+tokens only, so an encdec (seamless-m4t-large-v2) or vlm (internvl2-2b)
+fleet, whose prefill also needs the stubbed frontends' "frames" or
+"patches", is driven through the engine instead: `InferenceEngine.generate`
+with those inputs in the batch, and `serving.engine.measure_fn` (zero
+embeddings) for characterization (`chip_smoke.py` phase 9 builds the same
+characterize -> fit -> route -> serve pipeline that way).
 
 Weights are random, drawn on the device from a seeded torch.Generator in
 the config's dtype.  Runs on CUDA unless `device="cpu"` is passed.
@@ -62,18 +68,29 @@ def build_engine(arch: str, *, kv_cache: bool, seed: int = 0,
                            meter=WallClockMeter(), bucket=SERVE_BUCKET, device=dev)
 
 
+def campaign_settings(max_tokens: int) -> CampaignSettings:
+    """The characterization grid: τin, τout in powers of two from 8 to
+    `max_tokens`, 2 to 3 trials a point."""
+    return CampaignSettings(
+        vary_input_range=(8, max_tokens), vary_output_range=(8, max_tokens),
+        grid_range=(8, max_tokens), max_trials=3, min_trials=2,
+        ci_tolerance_s=0.5)
+
+
+def accuracy_ak(arch: str) -> float:
+    """A_K of Eq. 2: the paper's Table 1, else the config's own figure."""
+    base = arch.replace("-reduced", "")
+    return TABLE1.get(base, {"a_k": get_config(base).accuracy_ak})["a_k"]
+
+
 def characterize_fleet(archs: list[str], *, batch: int = 2, max_tokens: int = 64,
                        device: str | torch.device = "cuda") -> list:
     """Real-execution campaign -> fitted profiles.  One model's engine is
     alive at a time."""
-    settings = CampaignSettings(
-        vary_input_range=(8, max_tokens), vary_output_range=(8, max_tokens),
-        grid_range=(8, max_tokens), max_trials=3, min_trials=2,
-        ci_tolerance_s=0.5)
+    settings = campaign_settings(max_tokens)
     profiles = []
     for arch in archs:
-        base = arch.replace("-reduced", "")
-        a_k = TABLE1.get(base, {"a_k": get_config(base).accuracy_ak})["a_k"]
+        a_k = accuracy_ak(arch)
         engine = build_engine(arch, kv_cache=False, device=device)
         rng = np.random.default_rng(0)
 

@@ -1,6 +1,4 @@
-"""Model zoo: six architecture families behind one functional API (the
-moe, encdec and vlm families define their parameters; their forward
-passes are not ported yet)."""
+"""Model zoo: six architecture families behind one functional API."""
 
 from repro_torch.models.common import ModelConfig  # noqa: F401
 from repro_torch.models.registry import ModelAPI, active_params, get_api  # noqa: F401

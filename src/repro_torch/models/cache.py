@@ -1,7 +1,7 @@
 """Decode-time caches.
 
-Port of the attention, MLA latent, SSM and hybrid caches of
-`repro.models.cache`.  `pos` is a 0-d int32
+Port of the attention, MLA latent, SSM, hybrid and encoder-decoder caches
+of `repro.models.cache`.  `pos` is a 0-d int32
 tensor on the cache's device: the absolute position of the *next* token to
 be written, so a decode loop never reads it back to the host.
 Sliding-window caches are ring buffers of size `window`; keys are stored
@@ -130,6 +130,33 @@ class HybridCache:
     @property
     def window(self) -> int:
         return self.k.shape[2]
+
+
+@dataclasses.dataclass
+class EncDecCache:
+    """Seamless decoder cache: self-attention K/V self_k, self_v
+    [L, B, S, H, Dh] and the cross-attention K/V of the encoder memory,
+    computed once at prefill, cross_k, cross_v [L, B, T_frames, H, Dh]."""
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(n_layers, batch, cache_len, n_frames, n_kv, head_dim, dtype,
+             device) -> "EncDecCache":
+        s = (n_layers, batch, cache_len, n_kv, head_dim)
+        c = (n_layers, batch, n_frames, n_kv, head_dim)
+        return EncDecCache(torch.zeros(s, dtype=dtype, device=device),
+                           torch.zeros(s, dtype=dtype, device=device),
+                           torch.zeros(c, dtype=dtype, device=device),
+                           torch.zeros(c, dtype=dtype, device=device),
+                           torch.zeros((), dtype=torch.int32, device=device))
+
+    @property
+    def cache_len(self) -> int:
+        return self.self_k.shape[2]
 
 
 # The largest magnitude that rounds to a finite float8_e4m3fn: 448 is the

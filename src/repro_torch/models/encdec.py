@@ -1,18 +1,38 @@
-"""Seamless-M4T-v2 text backbone (encoder-decoder, audio family):
-parameter definitions.
+"""Seamless-M4T-v2 text backbone: encoder-decoder transformer (audio family).
 
-Port of the shape tables of `repro.models.encdec`: an NLLB-style
-backbone of encoder layers (bidirectional self-attention over the stubbed
-speech frontend's frame embeddings) and decoder layers (causal
-self-attention plus cross-attention into the encoder memory).  The cost
-model and the simulator count its parameters through them.  The forward
-passes are not ported yet: ROADMAP queue 1.
+Port of `repro.models.encdec`.  The speech frontend (mel + conformer
+feature extractor) is the allowed stub: the caller supplies precomputed
+frame embeddings [B, T_frames, d_model] (`configs.shapes.token_specs`).
+The backbone is NLLB-style: encoder layers (bidirectional self-attention
+over the frames) and decoder layers (causal self-attention plus
+cross-attention into the encoder memory).  RoPE positions the encoder's
+and decoder's self-attention; cross-attention is position-free.
+
+Decode state is an `EncDecCache`: the self-attention KV cache, written in
+place each step, and the cross-attention K/V of the memory, computed once
+at prefill.  A decode step attends twice a layer through kernel B1 on
+CUDA: over its own cache (`dense.attention_decode`) and over all T_frames
+memory positions.  Layers are stacked `[L, ...]` and run in a Python loop.
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import cache as cachelib
 from repro_torch.models import dense
-from repro_torch.models.common import ModelConfig, ParamDef, mlp_defs, padded_vocab
+from repro_torch.models.common import (
+    ModelConfig,
+    ParamDef,
+    embed_tokens,
+    layer_params,
+    lm_logits,
+    mlp_defs,
+    padded_vocab,
+    rmsnorm,
+    swiglu,
+)
 
 
 def _xattn_defs(cfg: ModelConfig, n: int) -> dict:
@@ -51,3 +71,143 @@ def param_defs(cfg: ModelConfig) -> dict:
         "final_norm": {"w": ParamDef((d,), (None,), init="zeros")},
         "head": ParamDef((d, padded_vocab(cfg.vocab_size)), ("embed_w", "vocab")),
     }
+
+
+def _mlp(cfg: ModelConfig, pl: dict, h: torch.Tensor) -> torch.Tensor:
+    return swiglu(rmsnorm(h, pl["ln_mlp"]["w"], cfg.rmsnorm_eps),
+                  pl["mlp"]["w_gate"], pl["mlp"]["w_up"], pl["mlp"]["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """frames [B, T, d] (stubbed frontend output) -> memory [B, T, d]."""
+    h = frames.to(cfg.dtype) @ params["adapter"]
+    for i in range(cfg.enc_layers):
+        pl = layer_params(params["encoder"], i)
+        a, _, _ = dense.attention_full(cfg, pl["attn"],
+                                       rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps),
+                                       causal=False)
+        h = h + a
+        h = h + _mlp(cfg, pl, h)
+    return rmsnorm(h, params["enc_norm"]["w"], cfg.rmsnorm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def _cross_attention_full(cfg, pl, x, mem_k, mem_v):
+    """x [B,S,d]; mem_k/mem_v [B,T,H,Dh] precomputed."""
+    q = dense._heads(x, pl["wq"])
+    o = attn.full_attention(q, mem_k, mem_v, causal=False)
+    return dense._out_proj(o, pl["wo"])
+
+
+def _cross_kv(cfg, pl, memory):
+    return dense._heads(memory, pl["wk"]), dense._heads(memory, pl["wv"])
+
+
+def _cross_attention_token(cfg, pl, x, k_l, v_l, last):
+    """x [B,d]; k_l/v_l [B,T,H,Dh]; `last` the 0-d int32 T-1: every memory
+    position is valid (kernel B1 on CUDA, no ring, no softcap)."""
+    q = dense._heads(x, pl["wq"])
+    o = attn.decode_attention(q, k_l, v_l, last)
+    return dense._out_proj(o, pl["wo"])
+
+
+def decode_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                memory: torch.Tensor, *, window: int = 0, collect: bool = False):
+    """Teacher-forced decoder pass.  Returns (hidden, (ks, vs, ck, cv) |
+    None), each stacked over layers: ks [L, B, S, H, Dh], ck [L, B, T, H, Dh]."""
+    h = embed_tokens(params["embed"], tokens)
+    kv = ([], [], [], [])
+    for i in range(cfg.dec_layers):
+        pl = layer_params(params["decoder"], i)
+        a, k, v = dense.attention_full(
+            cfg, pl["self"], rmsnorm(h, pl["ln_self"]["w"], cfg.rmsnorm_eps),
+            window=window)
+        h = h + a
+        ck, cv = _cross_kv(cfg, pl["cross"], memory)
+        h = h + _cross_attention_full(
+            cfg, pl["cross"], rmsnorm(h, pl["ln_cross"]["w"], cfg.rmsnorm_eps), ck, cv)
+        h = h + _mlp(cfg, pl, h)
+        if collect:
+            for acc, t in zip(kv, (k, v, ck, cv)):
+                acc.append(t)
+    return h, (tuple(torch.stack(acc) for acc in kv) if collect else None)
+
+
+# ---------------------------------------------------------------------------
+# Registry API
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
+            cache_len: int, long_context: bool = False):
+    """batch: {"frames": [B,T,d], "tokens": [B,S]}: encodes, runs the
+    decoder prefix, returns the last logits and an EncDecCache.  Self K/V
+    are cast to kv_dtype (ring-packed when windowed, else padded to
+    cache_len); cross K/V stay in the compute dtype, as in the reference."""
+    window = cfg.long_context_window if long_context else cfg.window
+    memory = encode(cfg, params, batch["frames"])
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    h, (ks, vs, ck, cv) = decode_full(cfg, params, tokens, memory,
+                                      window=window, collect=True)
+    hl = rmsnorm(h[:, -1], params["final_norm"]["w"], cfg.rmsnorm_eps)
+    logits = lm_logits(hl, params["head"], cfg.vocab_size)
+    ks = cachelib.to_cache_dtype(ks, cfg.kv_dtype)
+    vs = cachelib.to_cache_dtype(vs, cfg.kv_dtype)
+    if window:
+        ks, vs = cachelib.ring_pack(ks, vs, window, S)
+    else:
+        if cache_len < S:
+            raise ValueError(f"cache_len {cache_len} is shorter than the prompt {S}")
+        shape = ks.shape[:2] + (cache_len,) + ks.shape[3:]
+        k, v = ks.new_zeros(shape), vs.new_zeros(shape)
+        k[:, :, :S] = ks
+        v[:, :, :S] = vs
+        ks, vs = k, v
+    pos = torch.tensor(S, dtype=torch.int32, device=tokens.device)
+    return logits, cachelib.EncDecCache(ks, vs, ck, cv, pos)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+               long_context: bool = False, dtype=None, device):
+    dtype = dtype or cfg.kv_dtype
+    window = cfg.long_context_window if long_context else cfg.window
+    s_len = min(window, cache_len) if window else cache_len
+    return cachelib.EncDecCache.init(cfg.dec_layers, batch, s_len, cfg.n_frames,
+                                     cfg.n_kv_heads, cfg.head_dim_, dtype, device)
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache, batch: dict):
+    """batch: {"token": [B] int32}.  Writes this token's self K/V into the
+    cache in place at the reference's slot and returns the cache with
+    pos + 1 (same tensors).  Kernel B1 runs twice a layer on CUDA."""
+    token = batch["token"]
+    pos = cache.pos
+    S = cache.cache_len
+    # ring when the cache is windowed (long-context mode): the reference's rule
+    ring = bool(cfg.long_context_window and S == cfg.long_context_window) or bool(cfg.window)
+    slot = torch.remainder(pos, S) if ring else torch.clamp(pos, max=S - 1)
+    last = torch.full((), cache.cross_k.shape[2] - 1, dtype=torch.int32, device=pos.device)
+    h = embed_tokens(params["embed"], token)
+    for i in range(cfg.dec_layers):
+        pl = layer_params(params["decoder"], i)
+        h = h + dense.attention_decode(
+            cfg, pl["self"], rmsnorm(h, pl["ln_self"]["w"], cfg.rmsnorm_eps),
+            cache.self_k[i], cache.self_v[i], pos, slot, ring=ring)
+        h = h + _cross_attention_token(
+            cfg, pl["cross"], rmsnorm(h, pl["ln_cross"]["w"], cfg.rmsnorm_eps),
+            cache.cross_k[i], cache.cross_v[i], last)
+        h = h + _mlp(cfg, pl, h)
+    h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)
+    logits = lm_logits(h, params["head"], cfg.vocab_size)
+    return logits, cachelib.EncDecCache(cache.self_k, cache.self_v, cache.cross_k,
+                                        cache.cross_v, pos + 1)

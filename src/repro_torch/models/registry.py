@@ -6,12 +6,10 @@
     cache = api.init_cache(cfg, batch_size, cache_len, device=...)
     logits, cache = api.decode_step(cfg, params, cache, {"token": ...})
 
-Port of `repro.models.registry`.  Every family has its parameter
-definitions, so `count_params` and `active_params` work for all six (the
-analytic cost model needs them).  The dense, moe, ssm and hybrid families
-run; the encdec and vlm forward passes are not ported yet, and their
-`prefill`, `init_cache` and `decode_step` raise NotImplementedError
-naming the ROADMAP item that ports them.
+Port of `repro.models.registry`.  All six families run: dense, moe,
+ssm, hybrid, encdec (the batch also carries "frames") and vlm ("patches").
+`count_params` and `active_params` work for every family (the analytic
+cost model needs them).
 """
 
 from __future__ import annotations
@@ -33,14 +31,6 @@ _FAMILIES = {
     "encdec": encdec,
     "vlm": vlm,
 }
-
-
-def _not_ported(family: str, what: str) -> Callable:
-    def call(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {family} family's {what} is not ported to repro_torch yet: "
-            f"ROADMAP queue 1, item 2 (encdec and vlm forward passes)")
-    return call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,8 +59,9 @@ def get_api(cfg_or_family: ModelConfig | str) -> ModelAPI:
     return ModelAPI(
         family=family,
         param_defs=mod.param_defs,
-        **{what: getattr(mod, what, None) or _not_ported(family, what)
-           for what in ("prefill", "init_cache", "decode_step")},
+        prefill=mod.prefill,
+        init_cache=mod.init_cache,
+        decode_step=mod.decode_step,
     )
 
 

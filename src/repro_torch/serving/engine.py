@@ -14,7 +14,9 @@ serving uses it:
 The engine runs on `device` ("cuda" unless the caller asks for "cpu") and
 raises when that device is missing; the params must already be there.
 An optional meter (repro_torch.energy.meter) wraps each phase and returns
-joules; GenStats feeds the characterization campaign directly.
+joules; GenStats feeds the characterization campaign directly.  The vlm
+and encdec families also take the stubbed frontends' embeddings
+("patches", "frames") in the batch; they go to the device once a call.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.energy.meter import block_until_ready
 from repro_torch.models import get_api
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.vlm import VISION_DIM
 from repro_torch.serving.sampler import Sampler
 
 
@@ -105,8 +108,13 @@ class InferenceEngine:
     def _pad_len(self, n: int) -> int:
         return max(self.bucket, int(math.ceil(n / self.bucket)) * self.bucket)
 
-    def _prefill(self, tokens: torch.Tensor, cache_len: int):
-        return self.api.prefill(self.cfg, self.params, {"tokens": tokens},
+    def _extra_inputs(self, batch: dict) -> dict:
+        """The stubbed frontends' inputs ("patches", "frames") on the device."""
+        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()
+                if k in ("patches", "frames")}
+
+    def _prefill(self, inputs: dict, cache_len: int):
+        return self.api.prefill(self.cfg, self.params, inputs,
                                 cache_len=cache_len, long_context=self.long_context)
 
     def _decode(self, cache, token: torch.Tensor):
@@ -117,7 +125,7 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def generate(self, batch: dict, max_new_tokens: int) -> tuple[np.ndarray, GenStats]:
-        """batch: {"tokens": [B, S0] int32}.
+        """batch: {"tokens": [B, S0] int32, (+"patches"/"frames")}.
         Returns (generated [B, max_new_tokens] int32, stats)."""
         if self.kv_cache:
             return self._generate_cached(batch, max_new_tokens)
@@ -126,10 +134,11 @@ class InferenceEngine:
     def _generate_cached(self, batch, max_new):
         tokens = torch.as_tensor(np.asarray(batch["tokens"], np.int32), device=self.device)
         B, S0 = tokens.shape
-        cache_len = self._pad_len(S0 + max_new)
+        inputs = {"tokens": tokens, **self._extra_inputs(batch)}
+        cache_len = self._pad_len(prefix_positions(self.cfg) + S0 + max_new)
 
         (logits, cache), t_prefill, e_prefill = self.meter.measure(
-            lambda: self._prefill(tokens, cache_len))
+            lambda: self._prefill(inputs, cache_len))
 
         stats = GenStats(prefill_s=t_prefill, prefill_energy_j=e_prefill,
                          tau_in=S0, tau_out=max_new)
@@ -150,6 +159,11 @@ class InferenceEngine:
     def _generate_uncached(self, batch, max_new):
         tokens = np.asarray(batch["tokens"], np.int32)
         B, S0 = tokens.shape
+        extra = self._extra_inputs(batch)
+        # The cache is sized as the KV-on path sizes it: a vlm prefix of L
+        # tokens fills n_patches + L positions.  (The reference passes
+        # cache_len = L, which its vlm prefill cannot pad to.)
+        n_prefix = prefix_positions(self.cfg)
         buf = np.zeros((B, S0 + max_new), np.int32)
         buf[:, :S0] = tokens
 
@@ -160,10 +174,10 @@ class InferenceEngine:
         first_step_s = None
         for t in range(max_new):
             L = S0 + t
-            window = torch.as_tensor(buf[:, :L], device=self.device)
+            inputs = {"tokens": torch.as_tensor(buf[:, :L], device=self.device), **extra}
             # full re-forward over the exact prefix — the paper's mode
             (logits, _cache), dt, de = self.meter.measure(
-                lambda w=window, lp=L: self._prefill(w, lp))
+                lambda i=inputs, lp=n_prefix + L: self._prefill(i, lp))
             e_total += de
             if first_step_s is None:
                 first_step_s = dt
@@ -179,6 +193,21 @@ class InferenceEngine:
         return out, stats
 
 
+def prefix_positions(cfg: ModelConfig) -> int:
+    """Cache positions ahead of the tokens: the vlm's patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def frontend_inputs(cfg: ModelConfig, batch_size: int) -> dict:
+    """Zero embeddings from the stubbed frontends, f32, as the reference's
+    `measure_fn` supplies them: "patches" for vlm, "frames" for encdec."""
+    if cfg.family == "vlm":
+        return {"patches": np.zeros((batch_size, cfg.n_patches, VISION_DIM), np.float32)}
+    if cfg.family == "encdec":
+        return {"frames": np.zeros((batch_size, cfg.n_frames, cfg.d_model), np.float32)}
+    return {}
+
+
 def measure_fn(engine_factory: Callable[[], InferenceEngine], batch_size: int,
                vocab_size: int, *, seed: int = 0):
     """Adapter: (tau_in, tau_out) -> (energy_j, runtime_s), the callback the
@@ -189,7 +218,8 @@ def measure_fn(engine_factory: Callable[[], InferenceEngine], batch_size: int,
 
     def measure(tau_in: int, tau_out: int) -> tuple[float, float]:
         toks = rng.integers(1, vocab_size, size=(batch_size, tau_in), dtype=np.int64)
-        _, stats = engine.generate({"tokens": toks.astype(np.int32)}, tau_out)
+        batch = {"tokens": toks.astype(np.int32), **frontend_inputs(engine.cfg, batch_size)}
+        _, stats = engine.generate(batch, tau_out)
         return stats.energy_j, stats.runtime_s
 
     return measure

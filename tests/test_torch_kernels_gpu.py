@@ -12,8 +12,10 @@ against a float64 numpy oracle of the model-path semantics
 tests/test_torch_kernels.py holds the plain version on the CPU), at the
 shapes of tests/test_kernels.py::TestFlashDecode and with ring and
 softcap, with float8_e4m3fn caches, 1 to 32 query heads a KV head, with
-and without S-splits, with garbage and fp8 NaN patterns past pos, and
-over 1,000 calls on two streams.  Tolerances by q's dtype: 1e-4 for f32
+and without S-splits, with garbage and fp8 NaN patterns past pos, over
+1,000 calls on two streams, and at the encdec cross-attention and vlm
+decode shapes; reduced models of every family run on the card against
+the CPU.  Tolerances by q's dtype: 1e-4 for f32
 (reduction order), 2e-2 for bf16 (the kernel rounds the unnormalized
 softmax weights to bf16, the plain version the normalized ones, as the
 reference does).
@@ -482,6 +484,79 @@ def test_moe_models_on_the_card_match_the_cpu(cuda, arch, absorb, b1_per_step):
             {"tokens": toks}, 8)
         np.testing.assert_array_equal(out, ref)
         assert kda.launches - before == (b1_per_step * 8 if kv else 0)
+
+
+# (B, Hq, Hkv, D, S, pos): seamless-m4t-large-v2's cross-attention over all
+# 4,096 memory frames (G = 1, D = 64), and internvl2-2b's decode (G = 2,
+# D = 128) over 256 patch positions + the served text, a cache of 336
+ENCDEC_VLM_SHAPES = [(4, 16, 16, 64, 4096, 4095), (4, 16, 8, 128, 336, 300)]
+
+
+@pytest.mark.parametrize("n_splits", [None, 1, 7])
+@pytest.mark.parametrize("cache", ["same", "float8_e4m3fn"])
+@pytest.mark.parametrize("qdtype", list(TOL))
+@pytest.mark.parametrize("shape", ENCDEC_VLM_SHAPES)
+def test_encdec_and_vlm_shapes(cuda, monkeypatch, shape, qdtype, cache, n_splits):
+    """B1 at the encdec cross-attention and vlm decode shapes, with the
+    cache in q's type or fp8, S cut as the plan cuts it (None) or into 1
+    or 7 splits: within q's tolerance of the plain version and the oracle."""
+    if n_splits is not None:
+        monkeypatch.setattr(kda, "plan", lambda *a, **kw: n_splits)
+    B, Hq, Hkv, D, S, pos = shape
+    q, k, v = inputs(B, Hq, Hkv, D, S, getattr(torch, qdtype), seed=S + D)
+    if cache != "same":
+        k, v = k.float().to(torch.float8_e4m3fn), v.float().to(torch.float8_e4m3fn)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = kda.launches
+    out = kda.decode_attention(q, k, v, p)
+    assert kda.launches == before + 1 and out.dtype == q.dtype
+    close_b1(out, kda.decode_attention_plain(q, k, v, p), TOL[qdtype])
+    close_b1(out, oracle(q, k.float(), v.float(), pos), TOL[qdtype])
+
+
+@pytest.mark.parametrize("arch,b1_per_step", [
+    ("seamless-m4t-large-v2-reduced", 4),   # 2 decoder layers x (self + cross)
+    ("internvl2-2b-reduced", 2),            # 2 layers
+])
+def test_encdec_vlm_models_on_the_card_match_the_cpu(cuda, arch, b1_per_step):
+    """Reduced f32 encdec and vlm models with random frames/patches: prefill
+    and decode logits on the card within 1e-4 of the CPU's, greedy tokens
+    equal in both KV modes, and B1 launched b1_per_step times a decode step
+    and never in a prefill."""
+    from repro_torch.serving.engine import frontend_inputs
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    cpu = api.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+
+    def move(tree):
+        return {k: move(v) if isinstance(v, dict) else v.to(cuda) for k, v in tree.items()}
+
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(1, cfg.vocab_size, (2, 21)).astype(np.int32),
+             **{k: rng.normal(size=v.shape).astype(np.float32)
+                for k, v in frontend_inputs(cfg, 2).items()}}
+    gpu = move(cpu)
+    ref, _ = InferenceEngine(cfg, cpu, kv_cache=True, device="cpu").generate(batch, 8)
+    for kv in (True, False):
+        before = kda.launches
+        out, _ = InferenceEngine(cfg, gpu, kv_cache=kv, device=cuda).generate(batch, 8)
+        np.testing.assert_array_equal(out, ref)
+        assert kda.launches - before == (b1_per_step * 8 if kv else 0)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    cache_len = cfg.n_patches + 32
+    with torch.no_grad():
+        before = kda.launches
+        lg, cg = api.prefill(cfg, gpu, {k: v.to(cuda) for k, v in tb.items()},
+                             cache_len=cache_len)
+        assert kda.launches == before
+        lc, cc = api.prefill(cfg, cpu, tb, cache_len=cache_len)
+        close(lg, lc, 1e-4)
+        for t in range(4):
+            tok = torch.as_tensor(ref[:, t])
+            lg, cg = api.decode_step(cfg, gpu, cg, {"token": tok.to(cuda)})
+            lc, cc = api.decode_step(cfg, cpu, cc, {"token": tok})
+            close(lg, lc, 1e-4)
+        assert kda.launches - before == 4 * b1_per_step
 
 
 # ---------------------------------------------------------------------------

@@ -142,6 +142,15 @@ assert not bad, bad
 """
 
 
+ALONE = """
+import sys, importlib
+importlib.import_module({mod!r})
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok")
+"""
+
+
 class TestIsolation:
     def test_port_and_chip_smoke_load_no_jax_or_repro(self):
         res = subprocess.run([sys.executable, "-c", PROBE.format(root=str(ROOT))],
@@ -149,6 +158,17 @@ class TestIsolation:
                              capture_output=True, text=True, timeout=120)
         assert res.returncode == 0, res.stdout + res.stderr
         assert "loaded" in res.stdout
+
+    @pytest.mark.parametrize("mod", ["repro_torch.models.encdec", "repro_torch.models.vlm",
+                                     "repro_torch.configs.shapes"])
+    def test_encdec_vlm_modules_alone_load_no_jax_or_repro(self, mod):
+        """The encdec and vlm ports and the input shapes, each imported
+        first in a fresh interpreter (the JAX package's counterparts import
+        JAX)."""
+        res = subprocess.run([sys.executable, "-c", ALONE.format(mod=mod)],
+                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0 and "ok" in res.stdout, res.stdout + res.stderr
 
     def test_chip_smoke_fails_without_a_card(self, tmp_path):
         """No CUDA here: a nonzero exit and no result line, both from the
