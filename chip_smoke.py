@@ -41,10 +41,10 @@ Phases, each of which must pass:
               queries, serve with the KV cache on.  First llama2-7b and
               llama2-13b (characterized up to 32 tokens), where kernel B1's
               launch count must equal the decode work done; then
-              mamba2-130m and recurrentgemma-9b (up to 64 tokens), where
-              every prefill must launch B3 once per SSM layer or B4 once per
-              recurrent layer, and every decode step B1 once per attention
-              layer (characterized up to 32 tokens: SCAN_CHAR_MAX_TOKENS);
+              mamba2-130m and recurrentgemma-9b (characterized up to 32
+              tokens: SCAN_CHAR_MAX_TOKENS), where every prefill must launch
+              B3 once per SSM layer or B4 once per recurrent layer, and
+              every decode step B1 once per attention layer;
               one KV-on generate of each outside the router makes every
               kernel launch whatever the routing;
   7. outputs  reduced models on the card (through the kernels) against the
@@ -83,7 +83,28 @@ Phases, each of which must pass:
               internvl2 one, and 0 a prefill.  Then both reduced models on
               the card against the CPU, full-width decode against a
               re-forward, and the device's busy share of a decode step of
-              each and of a seamless KV-off forward.
+              each and of a seamless KV-off forward;
+ 10. cluster  the cluster simulator, its observability layer and the online
+              router (`repro_torch.cluster`, `repro_torch.obs`,
+              `serving.OnlineRouter`; host code, numpy): (a) fig4's main
+              table at the reference's sizes (200 Alpaca-like requests at
+              0.5, 2 and 8 qps, zeta 0.5 and 1, six policies over the
+              llama2-7b/13b/70b fleet), each run audited live at 1 shard
+              and identical to its bare 4-shard twin, the offline oracle
+              never beaten on the Eq. 2 objective, per-phase DVFS never
+              above the fixed frequency's energy, the telemetry cell (bare ==
+              fused == sharded observability) and the availability cell
+              (120 requests, MTTF 5x, 10x, 50x: partitions closed to 1e-9,
+              the failure-aware oracle bound, >= 90 % goodput at 10x);
+              (b) perf_suite's bench_cluster at 20,000 requests (host
+              requests/s beside the host CPU's model); (c) the six policies
+              at 2 qps over a llama2-7b/13b fleet routed by the profiles
+              phase 6 fitted on the card (every request served, the oracle
+              bound, the auditor silent); (d) `OnlineRouter` live: phase 6's
+              24 queries routed one at a time by zeta_online over those
+              profiles and served at once, batch 1, by KV-cached llama2-7b
+              and -13b engines on the card, B1's launches equal to layers x
+              max_new over the served requests.
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's sources beside it, or when any phase fails.  The last line is
@@ -97,6 +118,8 @@ import ctypes
 import gc
 import json
 import math
+import os
+import platform
 import subprocess
 import sys
 import time
@@ -421,7 +444,9 @@ def expected_decode_launches(serve_mod, out, get_config=None) -> int:
     return n
 
 
-def run_serve(torch, kda, serve_mod) -> int:
+def run_serve(torch, kda, serve_mod) -> tuple[int, list]:
+    """Phase 6's llama2 serve.  Returns B1's launches over it and the
+    llama2-7b/13b profiles fitted from the card's runs."""
     try:
         nvml = Nvml()
     except (OSError, PhaseError) as e:
@@ -460,7 +485,7 @@ def run_serve(torch, kda, serve_mod) -> int:
           "a served model reports no tokens or no time")
     check(expected > 0 and launches == expected,
           f"B1 launched {launches} times over serve(), expected {expected}")
-    return launches
+    return launches, out["profiles"]
 
 
 def frontend_batch(torch, cfg, B, seed, device="cuda") -> dict:
@@ -1700,6 +1725,378 @@ def run_analytic(torch, kcb) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the cluster simulator and the online router
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig4_online_gap.py's sizes
+FIG4_N = 200
+FIG4_RATES_QPS = (0.5, 2.0, 8.0)
+FIG4_POWER_RATES_QPS = (0.5, 2.0)
+FIG4_ZETAS = (0.5, 1.0)
+FIG4_MAX_BATCH = 8
+FIG4_IDLE_TIMEOUT_S = 30.0
+FIG4_FIT_POINTS = ((8, 8), (64, 64), (256, 128), (1024, 256), (32, 512),
+                   (512, 512), (128, 32), (2048, 64), (2048, 1024))
+AVAIL_FLEET = ("llama2-7b", "llama2-7b", "llama2-13b")
+AVAIL_N = 120
+AVAIL_MTTF_MULTS = (5.0, 10.0, 50.0)
+# benchmarks/perf_suite.py's bench_cluster at its largest size
+CLUSTER_BENCH_N = 20_000
+CLUSTER_BENCH_QPS = 8.0
+CLUSTER_BENCH_POINTS = FIG4_FIT_POINTS[:-1]
+
+
+def host_cpu() -> str:
+    """The host CPU as lscpu names it (model, architecture, vendor) and its
+    logical CPU count: the event loop runs on the host."""
+    fields = {}
+    try:
+        res = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30)
+        for line in res.stdout.splitlines():
+            key, _, value = line.strip().partition(":")
+            fields.setdefault(key, value.strip())
+    except OSError:
+        pass
+    return (f"{fields.get('Model name', 'model not reported')}, "
+            f"{fields.get('Architecture', platform.machine())}, "
+            f"vendor {fields.get('Vendor ID', 'not reported')}, {os.cpu_count()} logical CPUs")
+
+
+def analytic_profile(name, points=FIG4_FIT_POINTS):
+    """fig4's Eq. 6/7 fit of one case-study model against the analytic
+    simulator on the paper's SWING node."""
+    from repro_torch.configs import PAPER_ZOO, TABLE1
+    from repro_torch.core.energy_model import fit_profile
+    from repro_torch.energy import SWING_NODE, AnalyticLLMSimulator
+    sim = AnalyticLLMSimulator(PAPER_ZOO[name], SWING_NODE, batch=1, kv_cache=True,
+                               noise_sigma=0.0)
+    pbs = [sim.simulate(a, b) for a, b in points]
+    return fit_profile(name, TABLE1[name]["a_k"], [p[0] for p in points],
+                       [p[1] for p in points], [pb.energy_j for pb in pbs],
+                       [pb.runtime_s for pb in pbs])
+
+
+def fleet_builders(profiles, names=None, *, max_batch=FIG4_MAX_BATCH, **kw):
+    """Zero-arg ClusterNode factories: node i hosts names[i] (one node per
+    profile by default) on the simulator's SWING node model and is routed
+    by that model's profile."""
+    from repro_torch.cluster import ClusterNode
+    from repro_torch.configs import PAPER_ZOO
+    from repro_torch.energy import SWING_NODE
+    by_name = {p.name: p for p in profiles}
+    names = names or [p.name for p in profiles]
+    return [(lambda i=i, n=n: ClusterNode(i, PAPER_ZOO[n], by_name[n], SWING_NODE,
+                                          max_batch=max_batch, **kw))
+            for i, n in enumerate(names)]
+
+
+def fig4_trace(rate, n=FIG4_N):
+    """fig4's trace: the Alpaca-like workload (seed 7) replayed at `rate`."""
+    from repro_torch.cluster import replay_trace
+    from repro_torch.data import WorkloadSpec, alpaca_like_workload
+    queries = alpaca_like_workload(WorkloadSpec(n_queries=n, seed=7))
+    return replay_trace(queries, rate, seed=11, name=f"alpaca@{rate:g}qps")
+
+
+def fig4_policies():
+    from repro_torch.cluster import (GreedyEnergyPolicy, LeastLoadedPolicy,
+                                     OfflineOraclePolicy, RandomPolicy, RoundRobinPolicy,
+                                     ZetaOnlinePolicy)
+    return [RoundRobinPolicy(), RandomPolicy(seed=0), LeastLoadedPolicy(),
+            GreedyEnergyPolicy(), ZetaOnlinePolicy(), OfflineOraclePolicy()]
+
+
+def partition_residual(rep) -> float:
+    """The energy buckets' relative gap to the report's total."""
+    buckets = rep.energy_breakdown()
+    return abs(sum(buckets.values()) - rep.total_energy_j) / max(1.0, rep.total_energy_j)
+
+
+def policy_table(profiles, names, rate, tag) -> dict:
+    """fig4's six policies at one rate and both ζ.  Each run is made twice:
+    at 1 shard under a live auditor (which raises at the first settlement
+    off its closed form by more than 1e-9) and bare at 4 shards; the two
+    reports must be identical.  The offline oracle must be no worse than
+    any online policy on the Eq. 2 objective (and, at ζ = 1, on predicted
+    energy).  Returns {zeta: {policy: report}}."""
+    from repro_torch.cluster import fresh_nodes, simulate_cluster
+    from repro_torch.obs import InvariantAuditor, Telemetry
+    builders = fleet_builders(profiles, names)
+    trace = fig4_trace(rate)
+    out = {}
+    for zeta in FIG4_ZETAS:
+        reports = {}
+        for pol, pol4 in zip(fig4_policies(), fig4_policies()):
+            tel = Telemetry(auditor=InvariantAuditor())
+            rep = simulate_cluster(trace, fresh_nodes(builders), pol, zeta=zeta,
+                                   telemetry=tel, shards=1)
+            rep4 = simulate_cluster(trace, fresh_nodes(builders), pol4, zeta=zeta, shards=4)
+            check(rep.to_json(include_records=True) == rep4.to_json(include_records=True),
+                  f"{tag} rate={rate:g} zeta={zeta:g} {pol.name}: audited 1-shard and "
+                  f"bare 4-shard reports differ")
+            check(len(rep.records) == len(trace),
+                  f"{tag} {pol.name}: served {len(rep.records)} of {len(trace)}")
+            check(partition_residual(rep) <= 1e-9, f"{tag} {pol.name}: energy partition open")
+            check(tel.auditor.n_checks > 0, f"{tag} {pol.name}: the auditor checked nothing")
+            reports[pol.name] = rep
+        oracle = reports["offline_oracle"]
+        for name, rep in reports.items():
+            check(oracle.objective <= rep.objective + 1e-9,
+                  f"{tag} rate={rate:g} zeta={zeta:g}: oracle beaten on objective by {name}")
+            if zeta == 1.0:
+                check(oracle.predicted_energy_j <= rep.predicted_energy_j + 1e-6,
+                      f"{tag} rate={rate:g}: oracle beaten on energy by {name} at zeta=1")
+        online = [r.objective for n, r in reports.items() if n != "offline_oracle"]
+        print(f"[cluster] {tag} rate={rate:g} qps zeta={zeta:g}: oracle_obj={oracle.objective} "
+              f"best_online_obj={min(online)} worst_online_obj={max(online)} "
+              f"oracle_E={oracle.total_energy_j} J oracle_p95={oracle.latency_p95} s "
+              f"zeta_online_slo={reports['zeta_online'].slo_attainment()}")
+        out[zeta] = reports
+    return out
+
+
+def power_cells(profiles) -> None:
+    """Per-phase DVFS against the fixed frequency under zeta_online in
+    every (rate, ζ) cell of fig4's table: the governed busy and total
+    energy must be no more than the fixed run's.  Then fig4's gating cells
+    (reactive idle gating, with and without DVFS, at the power rates and
+    ζ 0.5) must serve every request."""
+    from repro_torch.cluster import (ReactiveIdlePolicy, ZetaOnlinePolicy, fresh_nodes,
+                                     simulate_cluster)
+    fixed = fleet_builders(profiles)
+    governed = fleet_builders(profiles, dvfs="per_phase")
+
+    def run(trace, builders, zeta, gated=False):
+        scaler = ReactiveIdlePolicy(idle_timeout_s=FIG4_IDLE_TIMEOUT_S) if gated else None
+        return simulate_cluster(trace, fresh_nodes(builders), ZetaOnlinePolicy(), zeta=zeta,
+                                autoscaler=scaler, shards=1)
+
+    for rate in FIG4_RATES_QPS:
+        trace = fig4_trace(rate)
+        for zeta in FIG4_ZETAS:
+            base, dvfs = run(trace, fixed, zeta), run(trace, governed, zeta)
+            check(dvfs.total_busy_energy_j <= base.total_busy_energy_j + 1e-6,
+                  f"DVFS busy energy above fixed at rate={rate:g} zeta={zeta:g}")
+            check(dvfs.total_energy_j <= base.total_energy_j + 1e-6,
+                  f"DVFS total energy above fixed at rate={rate:g} zeta={zeta:g}")
+            line = (f"[cluster] power rate={rate:g} qps zeta={zeta:g}: E fixed="
+                    f"{base.total_energy_j} dvfs={dvfs.total_energy_j}")
+            if rate in FIG4_POWER_RATES_QPS and zeta == 0.5:
+                gated, both = run(trace, fixed, zeta, True), run(trace, governed, zeta, True)
+                check(len(gated.records) == len(both.records) == FIG4_N,
+                      f"gated runs served fewer requests at rate={rate:g}")
+                line += f" gated={gated.total_energy_j} gated+dvfs={both.total_energy_j}"
+            print(line + " J (the simulator's SWING node model)")
+
+
+def telemetry_cell(profiles) -> None:
+    """fig4's telemetry cell (governed fleet, predictor router, reactive
+    gating, SLO preempter, 2 qps) bare, with full Telemetry fused, and with
+    full Telemetry sharded over 4 shards: the three reports identical, the
+    fused and sharded Prometheus text and Chrome trace identical, and the
+    report rebuilt from the registry within 1e-6 J."""
+    from repro_torch.cluster import (ClusterReport, ReactiveIdlePolicy, SLOPreemptionPolicy,
+                                     TauOutPredictor, ZetaOnlinePolicy, fresh_nodes)
+    from repro_torch.cluster.engine import Runner
+    from repro_torch.obs import EventTracer, InvariantAuditor, Telemetry
+    builders = fleet_builders(profiles, dvfs="per_phase")
+    trace = fig4_trace(2.0)
+
+    def run(telemetry=None, shards=1, obs_mode="fused"):
+        return Runner(trace, fresh_nodes(builders),
+                      ZetaOnlinePolicy(tau_out_predictor=TauOutPredictor()), zeta=0.5,
+                      autoscaler=ReactiveIdlePolicy(idle_timeout_s=FIG4_IDLE_TIMEOUT_S),
+                      preempter=SLOPreemptionPolicy(slowdown_slo=2.0), telemetry=telemetry,
+                      shard_count=shards, obs_mode=obs_mode).run()
+
+    def full():
+        return Telemetry(tracer=EventTracer(), auditor=InvariantAuditor(), sample_every_s=5.0)
+
+    bare = run().to_json(include_records=True)
+    tel, tel4 = full(), full()
+    fused = run(tel)
+    sharded = run(tel4, shards=4, obs_mode="sharded")
+    check(fused.to_json(include_records=True) == bare, "instrumented report differs from bare")
+    check(sharded.to_json(include_records=True) == bare, "sharded-obs report differs from bare")
+    check(tel.prometheus_text() == tel4.prometheus_text(),
+          "sharded Prometheus text differs from fused")
+    check(tel.tracer.to_json() == tel4.tracer.to_json(), "sharded Chrome trace differs from fused")
+    rebuilt = ClusterReport.from_registry(tel.registry)
+    check(abs(rebuilt.total_energy_j - fused.total_energy_j) < 1e-6,
+          "report rebuilt from the registry differs")
+    check(partition_residual(fused) <= 1e-9, "telemetry cell: energy partition open")
+    print(f"[cluster] telemetry cell: auditor checks={tel.auditor.n_checks} "
+          f"prometheus lines={len(tel.prometheus_text().splitlines())} "
+          f"trace events={len(tel.tracer)} preemptions={fused.total_preemptions}; "
+          f"bare == fused == sharded (4 shards)")
+
+
+def availability_cells(profiles) -> None:
+    """fig4's availability cell: 2x llama2-7b + llama2-13b, 120 requests at
+    2 qps, seeded crashes and stragglers at MTTF 5x, 10x and 50x the mean
+    isolated service time.  FailoverPolicy rescue under a live auditor, a
+    load-only failover and the failure-aware oracle on the same fault
+    trace: every partition closes to 1e-9, the oracle is never beaten on
+    the objective, the rescue keeps >= 90 % of the no-fault goodput at
+    10x, and the audited run equals its bare 4-shard twin."""
+    from repro_torch.cluster import (FailoverPolicy, FailureAwareOraclePolicy, FaultInjector,
+                                     LeastLoadedPolicy, ZetaOnlinePolicy, fresh_nodes,
+                                     simulate_cluster)
+    from repro_torch.obs import InvariantAuditor, Telemetry
+    builders = fleet_builders(profiles, AVAIL_FLEET, max_batch=4)
+    trace = fig4_trace(2.0, AVAIL_N)
+    base = simulate_cluster(trace, fresh_nodes(builders), FailoverPolicy(ZetaOnlinePolicy()),
+                            zeta=0.5, shards=1)
+    check(not base.abandoned, "no-fault baseline abandoned requests")
+    mean_service_s = sum(r.isolated_runtime_s for r in base.records) / len(base.records)
+    goodput = {}
+    for mult in AVAIL_MTTF_MULTS:
+        mttf = mult * mean_service_s
+        faults = FaultInjector(mttf_s=mttf, mttr_s=2.0 * mean_service_s, straggle_mttf_s=mttf,
+                               straggle_mttr_s=2.0 * mean_service_s,
+                               slowdown_range=(1.5, 2.5), seed=13,
+                               ).generate(range(len(AVAIL_FLEET)), trace.duration_s)
+        tel = Telemetry(auditor=InvariantAuditor())
+        reps = {
+            "failover": simulate_cluster(trace, fresh_nodes(builders),
+                                         FailoverPolicy(ZetaOnlinePolicy()), zeta=0.5,
+                                         faults=faults, telemetry=tel, shards=1),
+            "least_loaded": simulate_cluster(trace, fresh_nodes(builders),
+                                             FailoverPolicy(LeastLoadedPolicy()), zeta=0.5,
+                                             faults=faults, shards=1),
+            "oracle": simulate_cluster(trace, fresh_nodes(builders),
+                                       FailureAwareOraclePolicy(faults), zeta=0.5,
+                                       faults=faults, shards=1)}
+        twin = simulate_cluster(trace, fresh_nodes(builders), FailoverPolicy(ZetaOnlinePolicy()),
+                                zeta=0.5, faults=faults, shards=4)
+        check(twin.to_json(include_records=True)
+              == reps["failover"].to_json(include_records=True),
+              f"availability {mult:g}x: 4-shard report differs")
+        for tag, rep in reps.items():
+            check(partition_residual(rep) <= 1e-9,
+                  f"availability {mult:g}x {tag}: energy partition open")
+            if tag != "oracle" and len(rep.records) == len(reps["oracle"].records):
+                check(reps["oracle"].objective <= rep.objective + 1e-9,
+                      f"availability {mult:g}x: failure-aware oracle beaten by {tag}")
+        fo = reps["failover"]
+        goodput[mult] = fo.goodput() / max(base.goodput(), 1e-12)
+        print(f"[cluster] availability mttf={mult:g}x ({mttf} s): faults={len(faults)} "
+              f"crashes={fo.total_crashes} migrations={fo.total_migrations} "
+              f"goodput failover={fo.goodput()} oracle={reps['oracle'].goodput()} "
+              f"auditor checks={tel.auditor.n_checks}")
+    check(goodput[10.0] >= 0.9, f"failover kept only {goodput[10.0]} of no-fault goodput at 10x")
+    print(f"[cluster] availability: goodput recovery at 10x={goodput[10.0]}")
+
+
+def bench_cluster() -> None:
+    """perf_suite.bench_cluster at its largest size: 20,000 Poisson
+    requests at 8 qps over llama2-7b/13b/70b routed by zeta_online, timed
+    on the host's clock (the event loop is host code)."""
+    from repro_torch.cluster import ZetaOnlinePolicy, fresh_nodes, poisson_trace, simulate_cluster
+    from repro_torch.configs import CASE_STUDY_MODELS
+    profiles = [analytic_profile(n, CLUSTER_BENCH_POINTS) for n in CASE_STUDY_MODELS]
+    trace = poisson_trace(CLUSTER_BENCH_N, CLUSTER_BENCH_QPS, seed=3)
+    nodes = fresh_nodes(fleet_builders(profiles))
+    t0 = time.perf_counter()
+    rep = simulate_cluster(trace, nodes, ZetaOnlinePolicy(), zeta=0.5, shards=1)
+    wall = time.perf_counter() - t0
+    check(len(rep.records) == CLUSTER_BENCH_N, "bench_cluster dropped requests")
+    print(f"[cluster] bench_cluster n={CLUSTER_BENCH_N} at {CLUSTER_BENCH_QPS:g} qps: "
+          f"wall s={wall} host requests/s={CLUSTER_BENCH_N / wall} "
+          f"slo_attainment={rep.slo_attainment()} (host CPU: {host_cpu()})")
+
+
+def online_router_live(torch, kda, serve_mod, card_profiles) -> None:
+    """`OnlineRouter` live on the card: phase 6's 24 queries routed one at
+    a time by zeta_online over the card-fitted profiles, each served at
+    once at batch 1 by the KV-cached engine of the model it was routed to,
+    then reported complete.  B1's launches must equal layers x max_new
+    summed over the served requests."""
+    import numpy as np
+    from repro_torch.cluster import ZetaOnlinePolicy
+    from repro_torch.data import WorkloadSpec, alpaca_like_workload, token_batches
+    from repro_torch.serving import OnlineRouter, Request
+    try:
+        nvml = Nvml()
+    except (OSError, PhaseError) as e:
+        nvml = None
+        print(f"[cluster] NVML energy: not measured ({e})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    engines = {a: serve_mod.build_engine(a, kv_cache=True, device="cuda")
+               for a in SERVE_ARCHS}
+    router = OnlineRouter(card_profiles, policy=ZetaOnlinePolicy(), zeta=0.5)
+    queries = alpaca_like_workload(WorkloadSpec(n_queries=SERVE_QUERIES,
+                                                **serve_mod.SERVE_WORKLOAD))
+    split = collections.Counter()
+    expected = 0
+    torch.cuda.synchronize()
+    kda.launches = 0
+    e0 = nvml.millijoules() if nvml else None
+    t0 = time.perf_counter()
+    for i, (tin, tout) in enumerate(queries):
+        req = Request(i, np.zeros(tin, np.int32), tout)
+        model = router.route_one(req)
+        eng = engines[model]
+        batch = next(token_batches([(tin, tout)], 1, eng.cfg.vocab_size, seed=i))
+        gen, _ = eng.generate({"tokens": batch["tokens"]}, tout)
+        check(gen.shape == (1, tout), f"request {i}: generate returned {gen.shape}")
+        router.complete(req)
+        split[model] += 1
+        expected += eng.cfg.n_layers * tout
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kda.launches
+    e1 = nvml.millijoules() if nvml else None
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[cluster] online router: {sum(split.values())} of {SERVE_QUERIES} routed and "
+          f"served, split={dict(split)}, wall s={wall}")
+    if nvml:
+        print(f"[cluster] online router: NVML J over route + serve={(e1 - e0) / 1e3}")
+    print(f"[cluster] online router: B1 launches={launches} expected={expected} "
+          f"(layers x max_new over the served requests)")
+    check(sum(split.values()) == SERVE_QUERIES, "the online router lost requests")
+    check(all(v.outstanding == 0 for v in router.views), "a model view still has outstanding work")
+    check(expected > 0 and launches == expected,
+          f"B1 launched {launches} times in the online loop, expected {expected}")
+
+
+def run_cluster(torch, kda, serve_mod, card_profiles) -> None:
+    """Phase 10: (a) fig4 at the reference's sizes, (b) bench_cluster,
+    (c) fig4's six policies over the llama2-7b/13b fleet routed by the
+    card-fitted profiles, (d) the online router live on the card."""
+    from repro_torch.configs import CASE_STUDY_MODELS
+    t0 = time.perf_counter()
+    profiles = [analytic_profile(n) for n in CASE_STUDY_MODELS]
+    for rate in FIG4_RATES_QPS:
+        policy_table(profiles, None, rate, "fig4")
+    power_cells(profiles)
+    telemetry_cell(profiles)
+    availability_cells(profiles)
+    print(f"[cluster] (a) fig4 at the reference's sizes s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    bench_cluster()
+    print(f"[cluster] (b) bench_cluster s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    requests = fig4_trace(2.0).requests
+    for p in card_profiles:
+        negative = sum(float(p.energy(r.tau_in, r.tau_out)) < 0 for r in requests)
+        print(f"[cluster] card-fitted {p.name}: energy coeffs={list(p.energy.coeffs)} "
+              f"runtime coeffs={list(p.runtime.coeffs)} a_k={p.accuracy.a_k}; predicted "
+              f"energy < 0 for {negative} of {len(requests)} requests")
+    reports = policy_table(card_profiles, None, 2.0, "card-fitted")
+    for zeta, reps in reports.items():
+        split = collections.Counter(r.model for r in reps["zeta_online"].records)
+        print(f"[cluster] card-fitted zeta={zeta:g}: zeta_online split={dict(split)}")
+    print(f"[cluster] (c) card-fitted profiles in the cluster s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    online_router_live(torch, kda, serve_mod, card_profiles)
+    print(f"[cluster] (d) online router live s={time.perf_counter() - t0}")
+
+
 def _map(tree, fn):
     return {k: (_map(v, fn) if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
 
@@ -1747,7 +2144,7 @@ def main() -> int:
     analytic_launches = run_analytic(torch, kcb)
     print(f"[phase] analytic path s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    launches = run_serve(torch, kda, serve_mod)
+    launches, card_profiles = run_serve(torch, kda, serve_mod)
     fp8_launches = check_outputs(torch, kda, serve_mod)
     print(f"[phase] llama2 path (serve + outputs) s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
@@ -1762,6 +2159,10 @@ def main() -> int:
     ev_launches = run_encdec_vlm_serve(torch, kda, serve_mod)
     check_encdec_vlm_outputs(torch, kda, serve_mod)
     print(f"[phase] encdec + vlm path (serve + outputs) s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    run_cluster(torch, kda, serve_mod, card_profiles)
+    print(f"[phase] cluster (fig4, bench_cluster, card-fitted profiles, online router) "
+          f"s={time.perf_counter() - t0}")
 
     def entry(name, source, replaces, n, err, shape):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",

@@ -151,6 +151,51 @@ print("ok")
 """
 
 
+RUN_CLUSTER = """
+import sys
+import numpy as np
+from repro_torch.cluster import (CheckpointConfig, ClusterNode, FailoverPolicy,
+                                 FaultInjector, PrefixCacheConfig,
+                                 SessionAffinityPolicy, session_trace)
+from repro_torch.cluster.engine import Runner
+from repro_torch.configs import PAPER_ZOO, TABLE1
+from repro_torch.core.energy_model import fit_profile
+from repro_torch.energy import AnalyticLLMSimulator, SWING_NODE
+from repro_torch.obs import EventTracer, InvariantAuditor, Telemetry
+from repro_torch.serving import OnlineRouter, Request
+
+pts = [(8, 8), (64, 64), (256, 128), (512, 512), (128, 32)]
+profiles = {}
+for name in ("llama2-7b", "llama2-13b"):
+    sim = AnalyticLLMSimulator(PAPER_ZOO[name], SWING_NODE, batch=1,
+                               kv_cache=True, noise_sigma=0.0)
+    pbs = [sim.simulate(a, b) for a, b in pts]
+    profiles[name] = fit_profile(name, TABLE1[name]["a_k"], [p[0] for p in pts],
+                                 [p[1] for p in pts], [pb.energy_j for pb in pbs],
+                                 [pb.runtime_s for pb in pbs])
+nodes = [ClusterNode(i, PAPER_ZOO[n], profiles[n], SWING_NODE, max_batch=2,
+                     prefix_cache=PrefixCacheConfig(),
+                     checkpoint=CheckpointConfig(interval_tokens=16))
+         for i, n in enumerate(("llama2-7b", "llama2-13b", "llama2-7b", "llama2-13b"))]
+trace = session_trace(6, turns=3, think_s=4.0, rate_qps=1.0, seed=0)
+faults = FaultInjector(mttf_s=5.0, mttr_s=3.0, seed=0).generate(range(4), trace.duration_s)
+tel = Telemetry(tracer=EventTracer(), auditor=InvariantAuditor(), sample_every_s=2.0)
+rep = Runner(trace, nodes, FailoverPolicy(SessionAffinityPolicy()), zeta=0.5,
+             faults=faults, telemetry=tel, shard_count=4, obs_mode="sharded").run()
+# the auditor's lazy imports run on a KV migration, a checkpoint and a cache hit
+assert len(rep.records) == len(trace) and tel.auditor.n_checks > 0
+assert rep.total_migrations and rep.total_checkpoints and rep.total_cache_hits
+assert "sim_" in tel.prometheus_text() and len(tel.tracer) > 0
+router = OnlineRouter(list(profiles.values()))
+req = Request(request_id=0, tokens=np.zeros(12, np.int32), max_new_tokens=8)
+assert router.route_one(req) in profiles
+router.complete(req)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok")
+"""
+
+
 class TestIsolation:
     def test_port_and_chip_smoke_load_no_jax_or_repro(self):
         res = subprocess.run([sys.executable, "-c", PROBE.format(root=str(ROOT))],
@@ -166,6 +211,16 @@ class TestIsolation:
         first in a fresh interpreter (the JAX package's counterparts import
         JAX)."""
         res = subprocess.run([sys.executable, "-c", ALONE.format(mod=mod)],
+                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0 and "ok" in res.stdout, res.stdout + res.stderr
+
+    def test_cluster_run_and_online_route_load_no_jax_or_repro(self):
+        """A sharded, audited simulation with full telemetry and an online
+        route, run in a fresh interpreter: the imports these make only when
+        they run (the auditor's `energy.costs`, the runner's sharded `obs`,
+        the router's `cluster`) are the port's own."""
+        res = subprocess.run([sys.executable, "-c", RUN_CLUSTER],
                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                              capture_output=True, text=True, timeout=120)
         assert res.returncode == 0 and "ok" in res.stdout, res.stdout + res.stderr
