@@ -71,9 +71,10 @@ Phases, each of which must pass:
               busy share of a decode step (granite, mixtral, and
               deepseek-v3-671b cut to 4 layers, 3 dense + 1 MoE, in both
               MLA decode modes, where B1 must launch 0 times);
-  9. encdec + vlm  seamless-m4t-large-v2 (24 encoder + 24 decoder layers
-              over 4,096 frames) and internvl2-2b (24 layers, 256 patches)
-              at full width and depth, random bf16 weights, with seeded
+  9. encdec + vlm  seamless-m4t-large-v2 (over 4,096 frames, cut to 12 of
+              its 24 encoder and 24 decoder layers: DEPTH_CUTS) and
+              internvl2-2b (24 layers, 256 patches) at full width, random
+              bf16 weights, with seeded
               frames and patches: `serve()` passes tokens only, so the same
               characterize (KV off, up to 16 tokens, through `measure_fn`'s
               zero frames/patches) -> fit -> route (24 queries, zeta 0.5) ->
@@ -104,7 +105,30 @@ Phases, each of which must pass:
               24 queries routed one at a time by zeta_online over those
               profiles and served at once, batch 1, by KV-cached llama2-7b
               and -13b engines on the card, B1's launches equal to layers x
-              max_new over the served requests.
+              max_new over the served requests;
+ 11. train    the training path (`launch.steps.build_train_step`, AdamW,
+              bf16 weights drawn on the card, `lm_train_batches(kind=
+              "markov")`): (a) qwen3-1.7b at full width and depth, remat
+              on, batch 64 x 128 tokens in two microbatches of 32
+              accumulated in f32, 6 steps; (b) granite-moe-3b-a800m at full
+              width and depth, batch 32 x 128 (one microbatch), 4 steps,
+              every gradient finite, the pairs dropped past capacity per
+              step, and no scatter or index_add in the dispatch/combine
+              backward; each step's loss, wall and NVML J, step 2 under
+              the profiler (device busy share), then tokens/s and the
+              model-FLOP share (6 N T, N active less the input embedding)
+              of steps 3 on against the H100 SXM's dense bf16 peak, and
+              the peak memory;
+              losses finite and the last below the first; (c) resume:
+              qwen3-1.7b at full width cut to 2 layers, 4 steps straight
+              against 2 + save + load + 2 with deterministic algorithms on,
+              equal bit for bit; (d) one step of the reduced dense, moe
+              (granite, deepseek-v3), encdec and vlm models on the card
+              against the CPU, and mamba2/recurrentgemma's step raising
+              there (B3 and B4 have no backward); (e) the training CLI,
+              `launch.train.main`, at qwen3-1.7b's full size on its default
+              device: 4 steps that checkpoint, then 2 that resume from it,
+              both exiting 0.  No kernel launches in the phase.
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's sources beside it, or when any phase fails.  The last line is
@@ -114,12 +138,14 @@ port's sources beside it, or when any phase fails.  The last line is
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import gc
 import json
 import math
 import os
 import platform
+import re
 import subprocess
 import sys
 import time
@@ -135,12 +161,25 @@ SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
 SCAN_CHAR_MAX_TOKENS = 32       # the scan path's grid top (64 before phase 9 came)
 MOE_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b"]
 MOE_CHAR_MAX_TOKENS = 16        # the MoE path's characterization grid top
-# Depth cuts of the MoE phase, at full width: mixtral-8x7b's 32 layers
-# (47 B parameters, ~94 GB in bf16) and deepseek-v3-671b's 61 fit no 80 GB card.
-DEPTH_CUTS = {"mixtral-8x7b": 8, "deepseek-v3-671b": 4}
+# Depth cuts at full width: mixtral-8x7b's 32 layers (47 B parameters, ~94 GB
+# in bf16) and deepseek-v3-671b's 61 fit no 80 GB card; seamless-m4t-large-v2
+# is served with 12 of its 24 encoder and 24 decoder layers (an encdec cut is
+# per stack) to keep the script inside its time limit as it grows (its
+# KV-off characterization re-encodes 4,096 frames every call).
+DEPTH_CUTS = {"mixtral-8x7b": 8, "deepseek-v3-671b": 4, "seamless-m4t-large-v2": 12}
 ENCDEC_VLM_ARCHS = ["seamless-m4t-large-v2", "internvl2-2b"]
 ENCDEC_VLM_CHAR_MAX_TOKENS = 16
 SERVE_QUERIES = 24
+# phase 11 (training): (arch, batch, seq, steps) at full width and depth
+TRAIN_DENSE = ("qwen3-1.7b", 64, 128, 6)        # two microbatches of 32
+TRAIN_MOE = ("granite-moe-3b-a800m", 32, 128, 4)  # one microbatch
+TRAIN_RESUME_LAYERS = 2         # qwen3-1.7b's 28 layers cut for the resume check
+TRAIN_LR = 3e-4                 # repro.launch.train's default
+TRAIN_REDUCED = ["qwen3-1.7b-reduced", "granite-moe-3b-a800m-reduced",
+                 "deepseek-v3-671b-reduced", "seamless-m4t-large-v2-reduced",
+                 "internvl2-2b-reduced"]
+TRAIN_REFUSED = {"mamba2-130m-reduced": "B3", "recurrentgemma-9b-reduced": "B4"}
+BF16_DENSE_PEAK = 989.4e12      # H100 SXM data sheet, dense bf16 FLOP/s
 # one config per family branch of the pass-cost surface
 COST_ARCHS = ["llama2-7b", "mixtral-8x7b", "mistral-7b", "mamba2-130m", "recurrentgemma-9b",
               "deepseek-v3-671b", "seamless-m4t-large-v2", "internvl2-2b"]
@@ -1170,7 +1209,8 @@ def check_scan_outputs(torch, serve_mod) -> None:
 
 class DepthCut:
     """While active, the serve module's config lookup gives the archs of
-    DEPTH_CUTS at full width with that many layers; others unchanged."""
+    DEPTH_CUTS at full width with that many layers (an encdec model that
+    many in each stack); others unchanged."""
 
     def __init__(self, serve_mod):
         self.mod = serve_mod
@@ -1178,7 +1218,12 @@ class DepthCut:
 
     def lookup(self, arch):
         cfg = self.orig(arch)
-        return cfg.replace(n_layers=DEPTH_CUTS[arch]) if arch in DEPTH_CUTS else cfg
+        if arch not in DEPTH_CUTS:
+            return cfg
+        n = DEPTH_CUTS[arch]
+        if cfg.family == "encdec":
+            return cfg.replace(n_layers=2 * n, enc_layers=n, dec_layers=n)
+        return cfg.replace(n_layers=n)
 
     def describe(self, arch) -> str:
         from repro_torch.models import get_api
@@ -1424,9 +1469,10 @@ def serve_with_frontends(torch, serve_mod, archs, *, seed=0) -> dict:
 
 
 def run_encdec_vlm_serve(torch, kda, serve_mod) -> dict:
-    """serve_with_frontends over ENCDEC_VLM_ARCHS, then one KV-on generate
-    of each outside the router.  Every engine call's B1 launches must be
-    `b1_per_call`'s.  Returns arch -> B1's launches in its engines' calls."""
+    """serve_with_frontends over ENCDEC_VLM_ARCHS (DEPTH_CUTS in force),
+    then one KV-on generate of each outside the router.  Every engine
+    call's B1 launches must be `b1_per_call`'s.  Returns arch -> B1's
+    launches in its engines' calls."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import get_api
@@ -1436,10 +1482,12 @@ def run_encdec_vlm_serve(torch, kda, serve_mod) -> dict:
     except (OSError, PhaseError) as e:
         nvml = None
         print(f"[encdec-vlm] NVML energy: not measured ({e})")
+    cut = DepthCut(serve_mod)
     for arch in ENCDEC_VLM_ARCHS:
-        cfg = get_config(arch)
-        layers = (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers over "
-                  f"{cfg.n_frames} frames" if cfg.family == "encdec"
+        cfg, full = cut.lookup(arch), get_config(arch)
+        layers = (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers (of "
+                  f"{full.enc_layers} + {full.dec_layers}) over {cfg.n_frames} frames"
+                  if cfg.family == "encdec"
                   else f"{cfg.n_layers} layers, {cfg.n_patches} patches")
         print(f"[encdec-vlm] {arch}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
               f"{cfg.n_kv_heads} x {cfg.head_dim_}, {layers}, "
@@ -1447,7 +1495,7 @@ def run_encdec_vlm_serve(torch, kda, serve_mod) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with EngineCalls(InferenceEngine, {"B1": kda}) as calls:
+    with cut, EngineCalls(InferenceEngine, {"B1": kda}) as calls:
         kda.launches = 0
         e0 = nvml.millijoules() if nvml else None
         t0 = time.perf_counter()
@@ -1491,7 +1539,7 @@ def run_encdec_vlm_serve(torch, kda, serve_mod) -> dict:
     bad = []
     per_arch = collections.Counter()
     for (arch, kv, kind), n in sorted(calls.calls.items()):
-        want = b1_per_call(get_config(arch), kind)
+        want = b1_per_call(cut.lookup(arch), kind)
         got = calls.launches[(arch, kv, kind, "B1")]
         per_arch[arch] += got
         print(f"[encdec-vlm] {arch} KV-{'on' if kv else 'off'} {kind}: {n} calls, "
@@ -2097,6 +2145,405 @@ def run_cluster(torch, kda, serve_mod, card_profiles) -> None:
     print(f"[cluster] (d) online router live s={time.perf_counter() - t0}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training
+# ---------------------------------------------------------------------------
+
+
+def train_batches(torch, cfg, n, batch, seq, seed, device="cuda") -> list:
+    """`lm_train_batches(kind="markov")` moved to `device` up front."""
+    from repro_torch.data.workloads import lm_train_batches
+    return [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+            for b in lm_train_batches(n, batch, seq, cfg.vocab_size, seed=seed, kind="markov")]
+
+
+def _train_breakdown(prof, label):
+    """Where the profiled step's device time goes: the optimizer's update
+    (the `optimizer_update` range), the GEMMs (cuBLAS/CUTLASS kernels by
+    name) and the top kernels.  Returns the step's device busy ms (every
+    kernel; the step starts and ends synchronized), None where the
+    profiler saw no device time."""
+    from torch.autograd import DeviceType
+    rows = prof.key_averages()
+    # the range also shows on the device's timeline, where it is no kernel
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key != "optimizer_update"]
+    if not kernels:
+        return None
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    update = sum(e.device_time_total for e in rows if e.key == "optimizer_update"
+                 and e.device_type == DeviceType.CPU) / 1e3
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(k in e.key.lower() for k in ("gemm", "cutlass", "nvjet", "xmma"))) / 1e3
+    print(f"[train] {label}: the profiled step's device time {busy:.3f} ms: GEMM kernels "
+          f"{gemm:.3f} ms ({gemm / busy:.3f}), the optimizer's update {update:.3f} ms "
+          f"({update / busy:.3f}), {sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[train]   {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}")
+    return busy
+
+
+def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None) -> dict:
+    """`steps` AdamW steps of `cfg` at full width on the card through
+    `build_train_step`, random bf16 weights drawn on the card (seed 0).
+    Step 1 warms up; step 2 runs under the profiler (its device busy ms
+    and where it goes); steps 3 on run without it, and tokens/s, joules
+    and the model-FLOP share are taken from their walls.  Prints per step
+    the loss, wall ms and NVML J, then the peak of max_memory_allocated.
+    The model FLOPs are 6 N T, N the parameters a token touches (MoE: the
+    active ones) less the input embedding (a lookup, no matrix FLOPs; the
+    share with it is printed beside).  `probe(opt)`, if given, is a
+    context manager active over the steps; its `profiled` is set before
+    each step and its `step_done(i)` runs after each.  Returns the losses
+    and the probe."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import get_api
+    from repro_torch.models.registry import active_params
+    api = get_api(cfg)
+    n_params, n_active = api.count_params(cfg), active_params(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_embed = 0 if cfg.tie_embeddings else params["embed"].numel()
+    step_fn, opt = build_train_step(cfg, lr=TRAIN_LR)
+    state = opt.init(params)
+    update = opt.update
+
+    def ranged_update(*args):
+        with record_function("optimizer_update"):
+            return update(*args)
+
+    object.__setattr__(opt, "update", ranged_update)
+    batches = train_batches(torch, cfg, steps, batch, seq, seed=0)
+    mb = cfg.microbatch if cfg.microbatch and cfg.microbatch < batch else batch
+    print(f"[train] {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters ({n_active / 1e9:.3f} B active, "
+          f"{cfg.param_dtype}), {cfg.optimizer}, remat {cfg.remat}, batch {batch} x seq "
+          f"{seq} in microbatches of {mb} ({batch // mb} accumulated in "
+          f"{cfg.grad_accum_dtype}), lr {TRAIN_LR}")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    losses, walls, joules = [], [], []
+    torch.cuda.synchronize()
+    with probe(opt) if probe else contextlib.nullcontext() as watch:
+        for i, b in enumerate(batches):
+            if watch:
+                watch.profiled = i == 1
+            if i == 1:
+                prof.start()
+            e0 = nvml.millijoules() if nvml else None
+            t0 = time.perf_counter()
+            loss, params, state = step_fn(params, state, b)
+            losses.append(float(loss))          # synchronizes
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if nvml:
+                joules.append((nvml.millijoules() - e0) / 1e3)
+            if i == 1:
+                prof.stop()
+            if watch:
+                watch.step_done(i)
+    peak = torch.cuda.max_memory_allocated()
+    busy = _train_breakdown(prof, label)
+    tokens = batch * seq
+    step_s = sum(walls[2:]) / (steps - 2) / 1e3
+    for i in range(steps):
+        if i == 1:
+            dev = (f"under the profiler: device busy {busy:.3f} ms, idle share "
+                   f"{1 - busy / walls[i]:.3f} (against the unprofiled steps' wall "
+                   f"{1 - busy / (step_s * 1e3):.3f})" if busy else
+                   "under the profiler: device busy not measured (it saw no device time)")
+        else:
+            dev = "warm-up, not profiled" if i == 0 else "not profiled"
+        energy = f", NVML J {joules[i]:.1f}" if nvml else ""
+        print(f"[train] {label} step {i + 1}: loss {losses[i]:.5f}, wall {walls[i]:.3f} ms"
+              f"{energy}, {dev}")
+    flops = 6 * (n_active - n_embed) * tokens
+    print(f"[train] {label}: steps 3-{steps} (not profiled): {step_s * 1e3:.3f} ms "
+          f"a step, {tokens / step_s:.1f} tokens/s, model-FLOP share "
+          f"{flops / (step_s * BF16_DENSE_PEAK):.4f} (6 N T = {flops:.4e} FLOP a step, N = "
+          f"{(n_active - n_embed) / 1e9:.3f} B without the input embedding; with it "
+          f"{6 * n_active * tokens / (step_s * BF16_DENSE_PEAK):.4f}; over "
+          f"{BF16_DENSE_PEAK:.4g} FLOP/s, the H100 SXM's dense bf16 peak; this card: "
+          f"{nvidia_smi()})")
+    if nvml:
+        print(f"[train] {label}: NVML J a step (steps 3-{steps}) "
+              f"{sum(joules[2:]) / (steps - 2):.1f}")
+    print(f"[train] {label}: max_memory_allocated GiB={peak / 2**30}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
+    del params, state, batches
+    return {"losses": losses, "probe": watch}
+
+
+class MoEProbe:
+    """Over a MoE model's training steps: the pairs dropped past capacity
+    in each step's forward (`moe.dispatch_tables` wrapped), whether every
+    gradient handed to the optimizer is finite (both kept on the card, so
+    no step waits on the host for them), and, in the profiled steps only,
+    the aten ops that `moe._Dispatch.backward` and `moe._Combine.backward`
+    run (a TorchDispatchMode around each)."""
+
+    def __init__(self, torch, cfg, opt):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.opt = torch, moe, opt
+        self.n_moe = cfg.n_layers - cfg.n_dense_layers
+        self.tables, self.mark = [], 0
+        self.drops, self.finite = [], []
+        self.ops = collections.Counter()
+        self.profiled = False
+
+    def _tables(self, eidx, n_experts, capacity):
+        tab = self.saved["tables"](eidx, n_experts, capacity)
+        self.tables.append((~tab.keep).sum())
+        return tab
+
+    def _logged(self, fn):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        probe, ops = self, self.ops
+
+        class Log(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                ops[str(func)] += 1
+                return func(*args, **(kwargs or {}))
+
+        def backward(ctx, g):
+            if not probe.profiled:
+                return fn(ctx, g)
+            with Log():
+                return fn(ctx, g)
+        return staticmethod(backward)
+
+    def _update(self, grads, state, params, lr):
+        from repro_torch.checkpoint import flatten_tree
+        self.finite.append(self.torch.stack(
+            [self.torch.isfinite(g).all() for _, g in flatten_tree(grads)]).all())
+        return self.saved["update"](grads, state, params, lr)
+
+    def step_done(self, i):
+        """The step's forward made the first n_moe dispatches (one
+        microbatch; remat repeats them in the backward)."""
+        rec = self.tables[self.mark:]
+        self.mark = len(self.tables)
+        check(len(rec) in (self.n_moe, 2 * self.n_moe),
+              f"step {i + 1}: {len(rec)} dispatches for {self.n_moe} MoE layers")
+        self.drops.append(sum(rec[:self.n_moe]))
+
+    def __enter__(self):
+        moe = self.moe
+        self.saved = {"tables": moe.dispatch_tables, "update": self.opt.update,
+                      "dispatch": moe._Dispatch.backward, "combine": moe._Combine.backward}
+        moe.dispatch_tables = self._tables
+        moe._Dispatch.backward = self._logged(self.saved["dispatch"])
+        moe._Combine.backward = self._logged(self.saved["combine"])
+        object.__setattr__(self.opt, "update", self._update)
+        return self
+
+    def __exit__(self, *exc):
+        moe = self.moe
+        moe.dispatch_tables = self.saved["tables"]
+        moe._Dispatch.backward = staticmethod(self.saved["dispatch"])
+        moe._Combine.backward = staticmethod(self.saved["combine"])
+        object.__setattr__(self.opt, "update", self.saved["update"])
+
+
+def train_resume(torch, cfg, full_layers, batch, seq) -> None:
+    """(c) 4 steps straight against 2, a checkpoint saved, loaded and 2 more,
+    under torch.use_deterministic_algorithms(True): parameters and
+    optimizer state must be equal bit for bit."""
+    import shutil
+    from repro_torch import checkpoint as ckptlib
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import get_api
+    api = get_api(cfg)
+    step_fn, opt = build_train_step(cfg, lr=TRAIN_LR)
+    batches = train_batches(torch, cfg, 4, batch, seq, seed=1)
+    path = ROOT / "build" / "train_resume_ckpt"
+
+    def fresh():
+        params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        return params, opt.init(params)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    try:
+        p1, s1 = fresh()
+        for b in batches:
+            _, p1, s1 = step_fn(p1, s1, b)
+        straight = dict(ckptlib.flatten_tree({"p": p1, "s": s1}))
+        p2, s2 = fresh()
+        for b in batches[:2]:
+            _, p2, s2 = step_fn(p2, s2, b)
+        t0 = time.perf_counter()
+        ckptlib.save_checkpoint(path, {"params": p2, "opt_state": s2}, step=2,
+                                metadata={"arch": cfg.name})
+        t_save = time.perf_counter() - t0
+        del p2, s2
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tree, step, _ = ckptlib.load_checkpoint(path, device="cuda")
+        t_load = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in path.iterdir())
+        p3, s3 = tree["params"], tree["opt_state"]
+        for b in batches[2:]:
+            _, p3, s3 = step_fn(p3, s3, b)
+        resumed = dict(ckptlib.flatten_tree({"p": p3, "s": s3}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(path, ignore_errors=True)
+    same_keys = straight.keys() == resumed.keys()
+    differ = [k for k in straight if not (same_keys and torch.equal(straight[k], resumed[k]))]
+    n_leaves = len(straight)
+    del p1, s1, tree, p3, s3, straight, resumed
+    print(f"[train] resume: {cfg.name} at {cfg.n_layers} of {full_layers} layers (depth cut), "
+          f"{api.count_params(cfg) / 1e9:.3f} B parameters, checkpoint {size / 1e9:.2f} GB "
+          f"written in {t_save:.1f} s, read in {t_load:.1f} s; after 4 steps straight vs "
+          f"2 + save/load + 2 (deterministic algorithms on): {n_leaves - len(differ)} "
+          f"of {n_leaves} leaves equal bit for bit")
+    check(step == 2 and not differ,
+          f"resume on the card is not bit for bit: {differ[:8]}")
+
+
+def train_main(torch, arch, batch, seq) -> None:
+    """(e) The CLI, `repro_torch.launch.train.main`, on the card (its
+    default device) at full width and depth: 4 steps that save a
+    checkpoint at step 4, then 2 more that must resume from it.  Both
+    calls must return 0 (the last loss below the first) with finite
+    losses; the checkpoint (params and AdamW state, ~20 GB) is removed
+    after."""
+    import io
+    import shutil
+    from repro_torch.launch import train as train_mod
+    ckpt_dir = ROOT / "build" / "train_main_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(ckpt_dir.parent).free
+    args = ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "4"]
+    print(f"[train] main: {ckpt_dir.parent} has {free / 1e9:.1f} GB free")
+    outs = []
+    try:
+        for steps in (4, 2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_mod.main(args + ["--steps", str(steps)])
+            out = buf.getvalue()
+            for line in out.splitlines():
+                print(f"[train] main --steps {steps}: {line}")
+            print(f"[train] main --steps {steps}: rc {rc}, {time.perf_counter() - t0:.1f} s")
+            first, last = re.search(r"^loss (\S+) -> (\S+) improved", out, re.M).groups()
+            check(rc == 0 and math.isfinite(float(first)) and math.isfinite(float(last)),
+                  f"launch.train.main --steps {steps}: rc {rc}, loss {first} -> {last}")
+            outs.append(out)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check("resumed from" not in outs[0] and "resumed from step 4" in outs[1],
+          "launch.train.main did not resume from its step-4 checkpoint")
+
+
+def train_reduced(torch) -> None:
+    """(d) one step's loss and gradients of each reduced family on the card
+    against the CPU from the same weights (losses within 1e-3, gradients
+    within 1e-2 of the largest), then the optimizer's update on the card;
+    mamba2 and recurrentgemma must refuse (B3 and B4 have no backward)."""
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step, value_and_grad
+    from repro_torch.models import get_api
+    for arch in TRAIN_REDUCED + list(TRAIN_REFUSED):
+        cfg = get_config(arch)
+        api = get_api(cfg)
+        params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = {**train_batches(torch, cfg, 1, 2, 32, seed=2, device="cpu")[0],
+                 **frontend_batch(torch, cfg, 2, seed=2, device="cpu")}
+        on_card = _map(params, lambda t: t.cuda())
+        card_batch = {k: v.cuda() for k, v in batch.items()}
+        step_fn, opt = build_train_step(cfg, lr=TRAIN_LR)
+        if arch in TRAIN_REFUSED:
+            kernel = TRAIN_REFUSED[arch]
+            try:
+                step_fn(on_card, opt.init(on_card), card_batch)
+            except RuntimeError as e:
+                check(f"kernel {kernel} has no backward" in str(e), f"{arch}: {e}")
+                print(f"[train] reduced {arch}: the step raises on the card as it must: {e}")
+                continue
+            raise PhaseError(f"{arch}: a training step on the card did not raise")
+        loss_fn = lambda p, b: api.train_loss(cfg, p, b)[0]
+        cpu_loss, cpu_g = value_and_grad(loss_fn, params, batch)
+        loss, g = value_and_grad(loss_fn, on_card, card_batch)
+        ref = dict(flatten_tree(cpu_g))
+        worst = max(float((v.cpu() - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+                    for k, v in flatten_tree(g))
+        opt.update(g, opt.init(on_card), on_card, TRAIN_LR)
+        finite = all(bool(torch.isfinite(v).all()) for _, v in flatten_tree(on_card))
+        print(f"[train] reduced {arch}: loss card {float(loss):.6f} cpu {float(cpu_loss):.6f}, "
+              f"largest gradient error / largest gradient {worst:.2e}, updated params finite "
+              f"{finite}")
+        check(abs(float(loss) - float(cpu_loss)) <= 1e-3, f"{arch}: card loss differs")
+        check(worst <= 1e-2 and finite, f"{arch}: card gradients differ or go non-finite")
+
+
+def run_train(torch, kernel_mods) -> None:
+    """Phase 11: (a) qwen3-1.7b and (b) granite-moe-3b-a800m trained at
+    full width and depth, (c) resume bit for bit, (d) the reduced families
+    against the CPU, (e) the training CLI with a checkpoint and a resume.  No kernel lies on the training path: every kernel's
+    launch count is 0 over the phase."""
+    from repro_torch.configs import get_config
+    try:
+        nvml = Nvml()
+    except (OSError, PhaseError) as e:
+        nvml = None
+        print(f"[train] NVML energy: not measured ({e})")
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    arch, batch, seq, steps = TRAIN_DENSE
+    train_cell(torch, arch, get_config(arch), batch, seq, steps, nvml)
+    print(f"[train] (a) {arch} s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    arch, batch, seq, steps = TRAIN_MOE
+    cfg = get_config(arch)
+    check(not cfg.microbatch or batch <= cfg.microbatch,
+          f"{arch}: batch {batch} is above microbatch {cfg.microbatch}")
+    out = train_cell(torch, arch, cfg, batch, seq, steps, nvml,
+                     probe=lambda opt: MoEProbe(torch, cfg, opt))
+    watch = out["probe"]
+    scatter = {op: n for op, n in watch.ops.items()
+               if "scatter" in op or "index_add" in op or "index_put" in op}
+    pairs = batch * seq * cfg.top_k * watch.n_moe
+    drops = [int(d) for d in watch.drops]
+    finite = [bool(f) for f in watch.finite]
+    print(f"[train] {arch}: (token, expert) pairs dropped past capacity per step, over its "
+          f"{watch.n_moe} MoE layers: {drops} of {pairs} "
+          f"({[round(d / pairs, 4) for d in drops]}); every gradient finite {finite}")
+    print(f"[train] {arch}: ops in the dispatch/combine backward of the profiled steps "
+          f"{dict(watch.ops)}")
+    check(all(finite) and len(finite) == steps, f"{arch}: a gradient is not finite")
+    check(watch.ops and not scatter, f"{arch}: the dispatch/combine backward ran {scatter}")
+    print(f"[train] (b) {arch} s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    arch, batch, seq, _ = TRAIN_DENSE
+    cfg = get_config(arch)
+    train_resume(torch, cfg.replace(n_layers=TRAIN_RESUME_LAYERS), cfg.n_layers, batch, seq)
+    print(f"[train] (c) resume s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    train_reduced(torch)
+    print(f"[train] (d) reduced families s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    arch, batch, seq, _ = TRAIN_DENSE
+    train_main(torch, arch, batch, seq)
+    print(f"[train] (e) launch.train.main s={time.perf_counter() - t0}")
+    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    print(f"[train] kernel launches over the phase: {launches} (no kernel lies on the "
+          f"training path)")
+    check(not any(launches.values()), f"a kernel launched on the training path: {launches}")
+
+
 def _map(tree, fn):
     return {k: (_map(v, fn) if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
 
@@ -2106,6 +2553,9 @@ def main() -> int:
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms (phase
+    # 11's resume check) only with a fixed workspace, set before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2162,6 +2612,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_cluster(torch, kda, serve_mod, card_profiles)
     print(f"[phase] cluster (fig4, bench_cluster, card-fitted profiles, online router) "
+          f"s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    run_train(torch, {"B1": kda, "B2": kcb, "B3": kss, "B4": krg})
+    print(f"[phase] training (qwen3-1.7b, granite-moe-3b-a800m, resume, reduced, CLI) "
           f"s={time.perf_counter() - t0}")
 
     def entry(name, source, replaces, n, err, shape):

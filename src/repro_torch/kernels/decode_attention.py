@@ -77,7 +77,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      softcap: float = 0.0) -> torch.Tensor:
     """`decode_attention_plain`'s function: the plain version on CPU
     tensors, the CUDA kernel on CUDA tensors.  `pos` is an int or a 0-d
-    int32 tensor on q's device."""
+    int32 tensor on q's device.  The kernel has no backward: on CUDA
+    inputs that need a gradient it raises."""
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"want q [B,Hq,D], k/v [B,S,Hkv,D]; got {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -92,6 +93,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors on one "
                          f"device; got {sorted(map(str, devices))}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
+        raise RuntimeError("decode_attention: kernel B1 has no backward, so its output "
+                           "would carry no gradient to its inputs; run it under "
+                           "torch.no_grad()")
     # The ring rule keeps the same keys as idx <= pos for every pos >= 0, so
     # the kernel needs no ring flag (see the note in the CUDA source).
     return _launch(q, k_cache, v_cache, pos, softcap)

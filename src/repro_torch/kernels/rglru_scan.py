@@ -74,7 +74,8 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None):
     """`rglru_scan_plain`'s function: the plain version on CPU tensors, the
-    CUDA kernel on CUDA tensors."""
+    CUDA kernel on CUDA tensors.  The kernel has no backward: on CUDA
+    inputs that need a gradient it raises."""
     if a.dim() != 3 or b.shape != a.shape or a.shape[1] < 1:
         raise ValueError(f"want a, b [B,S,W] of one shape; got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
@@ -88,6 +89,10 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None)
     if len(devices) != 1 or a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on CPU or CUDA tensors on one device; "
                          f"got {sorted(map(str, devices))}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("rglru_scan: kernel B4 has no backward yet, so its output "
+                           "would carry no gradient to its inputs; run it under "
+                           "torch.no_grad(), or train on the CPU")
     return _launch(a, b, h0)
 
 

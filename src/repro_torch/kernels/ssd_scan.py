@@ -23,7 +23,8 @@ in scalar f32 (32-step chunks): TF32 products would miss the f32 gate.
 `ssd_scan` is the one entry point.  For CPU tensors it runs
 `ssd_scan_plain`, the port of `ssd_chunked` in plain PyTorch; for CUDA
 tensors it launches the kernel of the input type or raises, and never
-falls back.
+falls back.  The kernel has no backward: on CUDA inputs that need a
+gradient it raises rather than return a tensor cut from the graph.
 """
 
 from __future__ import annotations
@@ -139,6 +140,10 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     if len(devices) != 1 or xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CPU or CUDA tensors on one device; "
                          f"got {sorted(map(str, devices))}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("ssd_scan: kernel B3 has no backward yet, so its output "
+                           "would carry no gradient to its inputs; run it under "
+                           "torch.no_grad(), or train on the CPU")
     return _launch(xdt, dA, B, C, h0)
 
 

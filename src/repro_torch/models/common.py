@@ -10,11 +10,12 @@ the model runs a Python loop over the layer index where the reference runs
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +188,15 @@ def init_params(defs: ParamTree, generator: torch.Generator,
     return params
 
 
-def layer_params(tree: dict, i: int) -> dict:
-    """Layer i's slice of a layer-stacked param tree."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+def unstack_layers(tree: dict) -> list[dict]:
+    """A layer-stacked param tree as a list of per-layer trees (views of
+    one `unbind` per leaf).  Its backward is one stack per leaf, where
+    indexing layer by layer would make a full-size zero gradient per
+    layer and leaf."""
+    per_leaf = {k: (unstack_layers(v) if isinstance(v, dict) else v.unbind(0))
+                for k, v in tree.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 def count_params(defs: ParamTree) -> int:
@@ -278,3 +284,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Ten
     nll = (logz - gold) * mask
     n = mask.sum().clamp(min=1.0)
     return nll.sum() / n, n
+
+
+def maybe_remat(fn: Callable, enabled: bool) -> Callable:
+    """fn recomputed in the backward pass instead of keeping what it saves
+    (the reference's `jax.checkpoint` with `nothing_saveable`): only fn's
+    inputs are kept.  A no-op when grad is off (serving)."""
+    if not enabled:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run

@@ -17,14 +17,16 @@ from repro_torch.models import cache as cachelib
 from repro_torch.models.common import (
     ModelConfig,
     ParamDef,
+    cross_entropy,
     embed_tokens,
-    layer_params,
     lm_logits,
+    maybe_remat,
     mlp_defs,
     padded_vocab,
     rmsnorm,
     rope,
     swiglu,
+    unstack_layers,
 )
 
 
@@ -161,18 +163,23 @@ def decode_layer(cfg: ModelConfig, pl: dict, h: torch.Tensor,
 def forward_full(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
                  q_offset: int = 0, window: int = 0, collect_kv: bool = False):
     """Run the layer stack over embeddings x [B, S, d].
-    Returns (hidden, (ks, vs) | None); ks [L, B, S, Hkv, Dh]."""
-    h = x
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        pl = layer_params(blocks, i)
+    Returns (hidden, (ks, vs) | None); ks [L, B, S, Hkv, Dh].  Each layer
+    is recomputed in the backward pass when cfg.remat is on."""
+
+    def body(h, pl):
         a, k, v = attention_full(cfg, pl["attn"],
                                  rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps),
                                  q_offset=q_offset, window=window)
         h = h + a
         m = swiglu(rmsnorm(h, pl["ln_mlp"]["w"], cfg.rmsnorm_eps),
                    pl["mlp"]["w_gate"], pl["mlp"]["w_up"], pl["mlp"]["w_down"])
-        h = h + m
+        return h + m, k, v
+
+    body = maybe_remat(body, cfg.remat)
+    h = x
+    ks, vs = [], []
+    for pl in unstack_layers(blocks):
+        h, k, v = body(h, pl)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -187,15 +194,25 @@ def decode_pass(cfg: ModelConfig, blocks: dict, x: torch.Tensor,
     S = k_cache.shape[2]
     slot = torch.remainder(pos, S) if ring else torch.clamp(pos, max=S - 1)
     h = x
-    for i in range(cfg.n_layers):
-        h = decode_layer(cfg, layer_params(blocks, i), h, k_cache[i], v_cache[i], pos,
-                         slot, ring=ring)
+    for i, pl in enumerate(unstack_layers(blocks)):
+        h = decode_layer(cfg, pl, h, k_cache[i], v_cache[i], pos, slot, ring=ring)
     return h
 
 
 # ---------------------------------------------------------------------------
 # Registry API
 # ---------------------------------------------------------------------------
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """Mean next-token cross-entropy of batch["tokens"] against
+    batch["labels"] (-1 = ignored).  Returns (loss, metrics)."""
+    x = embed_tokens(params["embed"], batch["tokens"])
+    h, _ = forward_full(cfg, params["blocks"], x, window=cfg.window)
+    h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)
+    logits = lm_logits(h, head_matrix(cfg, params), cfg.vocab_size)
+    loss, _ = cross_entropy(logits, batch["labels"])
+    return loss, {}
 
 
 def _finish_cache(cfg, ks, vs, cache_len, window, pos_end):

@@ -25,13 +25,15 @@ from repro_torch.models import dense
 from repro_torch.models.common import (
     ModelConfig,
     ParamDef,
+    cross_entropy,
     embed_tokens,
-    layer_params,
     lm_logits,
+    maybe_remat,
     mlp_defs,
     padded_vocab,
     rmsnorm,
     swiglu,
+    unstack_layers,
 )
 
 
@@ -85,14 +87,18 @@ def _mlp(cfg: ModelConfig, pl: dict, h: torch.Tensor) -> torch.Tensor:
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
     """frames [B, T, d] (stubbed frontend output) -> memory [B, T, d]."""
-    h = frames.to(cfg.dtype) @ params["adapter"]
-    for i in range(cfg.enc_layers):
-        pl = layer_params(params["encoder"], i)
+
+    def body(h, pl):
         a, _, _ = dense.attention_full(cfg, pl["attn"],
                                        rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps),
                                        causal=False)
         h = h + a
-        h = h + _mlp(cfg, pl, h)
+        return h + _mlp(cfg, pl, h)
+
+    body = maybe_remat(body, cfg.remat)
+    h = frames.to(cfg.dtype) @ params["adapter"]
+    for pl in unstack_layers(params["encoder"]):
+        h = body(h, pl)
     return rmsnorm(h, params["enc_norm"]["w"], cfg.rmsnorm_eps)
 
 
@@ -124,10 +130,8 @@ def decode_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 memory: torch.Tensor, *, window: int = 0, collect: bool = False):
     """Teacher-forced decoder pass.  Returns (hidden, (ks, vs, ck, cv) |
     None), each stacked over layers: ks [L, B, S, H, Dh], ck [L, B, T, H, Dh]."""
-    h = embed_tokens(params["embed"], tokens)
-    kv = ([], [], [], [])
-    for i in range(cfg.dec_layers):
-        pl = layer_params(params["decoder"], i)
+
+    def body(h, pl):
         a, k, v = dense.attention_full(
             cfg, pl["self"], rmsnorm(h, pl["ln_self"]["w"], cfg.rmsnorm_eps),
             window=window)
@@ -135,9 +139,15 @@ def decode_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         ck, cv = _cross_kv(cfg, pl["cross"], memory)
         h = h + _cross_attention_full(
             cfg, pl["cross"], rmsnorm(h, pl["ln_cross"]["w"], cfg.rmsnorm_eps), ck, cv)
-        h = h + _mlp(cfg, pl, h)
+        return h + _mlp(cfg, pl, h), k, v, ck, cv
+
+    body = maybe_remat(body, cfg.remat)
+    h = embed_tokens(params["embed"], tokens)
+    kv = ([], [], [], [])
+    for pl in unstack_layers(params["decoder"]):
+        h, *layer_kv = body(h, pl)
         if collect:
-            for acc, t in zip(kv, (k, v, ck, cv)):
+            for acc, t in zip(kv, layer_kv):
                 acc.append(t)
     return h, (tuple(torch.stack(acc) for acc in kv) if collect else None)
 
@@ -145,6 +155,17 @@ def decode_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Registry API
 # ---------------------------------------------------------------------------
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """batch: {"frames": [B,T,d], "tokens": [B,S], "labels": [B,S]}: the
+    decoder's mean next-token cross-entropy over the encoded frames."""
+    memory = encode(cfg, params, batch["frames"])
+    h, _ = decode_full(cfg, params, batch["tokens"], memory, window=cfg.window)
+    h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)
+    logits = lm_logits(h, params["head"], cfg.vocab_size)
+    loss, _ = cross_entropy(logits, batch["labels"])
+    return loss, {}
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -198,8 +219,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache, batch: dict):
     slot = torch.remainder(pos, S) if ring else torch.clamp(pos, max=S - 1)
     last = torch.full((), cache.cross_k.shape[2] - 1, dtype=torch.int32, device=pos.device)
     h = embed_tokens(params["embed"], token)
-    for i in range(cfg.dec_layers):
-        pl = layer_params(params["decoder"], i)
+    for i, pl in enumerate(unstack_layers(params["decoder"])):
         h = h + dense.attention_decode(
             cfg, pl["self"], rmsnorm(h, pl["ln_self"]["w"], cfg.rmsnorm_eps),
             cache.self_k[i], cache.self_v[i], pos, slot, ring=ring)

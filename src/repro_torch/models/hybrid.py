@@ -19,6 +19,8 @@ bounded window held in a ring cache; its decode attends through kernel B1.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -28,13 +30,15 @@ from repro_torch.models import dense
 from repro_torch.models.common import (
     ModelConfig,
     ParamDef,
+    cross_entropy,
     embed_tokens,
-    layer_params,
     lm_logits,
+    maybe_remat,
     mlp_defs,
     padded_vocab,
     rmsnorm,
     swiglu,
+    unstack_layers,
 )
 from repro_torch.models.ssm import _causal_conv
 
@@ -203,26 +207,46 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                  collect: bool = False):
     """Run the units and the tail over embeddings x [B,S,d].  Returns
     (hidden, (lru [Lr,B,w], conv [Lr,B,K-1,w], ks, vs [La,B,S,Hkv,Dh]) |
-    None), the recurrent states in layer order."""
-    n_units, tail, _ = pattern_counts(cfg)
+    None), the recurrent states in layer order.  Each unit and each tail
+    layer is recomputed in the backward pass when cfg.remat is on, as the
+    reference's scan bodies are."""
+
+    def unit_body(h, pu):
+        h, st_a, cv_a = _rec_block_full(cfg, pu["rec_a"], h)
+        h, st_b, cv_b = _rec_block_full(cfg, pu["rec_b"], h)
+        h, k, v = _attn_block_full(cfg, pu["attn"], h, cfg.local_window)
+        return h, st_a, cv_a, st_b, cv_b, k, v
+
+    unit_body = maybe_remat(unit_body, cfg.remat)
+    tail_body = maybe_remat(functools.partial(_rec_block_full, cfg), cfg.remat)
     h = x
     lru, conv, ks, vs = [], [], [], []
-    for i in range(n_units):
-        pu = layer_params(params["units"], i)
-        for name in ("rec_a", "rec_b"):
-            h, st, cv = _rec_block_full(cfg, pu[name], h)
-            lru.append(st)
-            conv.append(cv)
-        h, k, v = _attn_block_full(cfg, pu["attn"], h, cfg.local_window)
+    for pu in unstack_layers(params["units"]):
+        h, st_a, cv_a, st_b, cv_b, k, v = unit_body(h, pu)
+        lru += [st_a, st_b]
+        conv += [cv_a, cv_b]
         ks.append(k)
         vs.append(v)
-    for i in range(tail):
-        h, st, cv = _rec_block_full(cfg, layer_params(params["tail"]["rec"], i), h)
-        lru.append(st)
-        conv.append(cv)
+    if "tail" in params:
+        for pl in unstack_layers(params["tail"]["rec"]):
+            h, st, cv = tail_body(pl, h)
+            lru.append(st)
+            conv.append(cv)
     if not collect:
         return h, None
     return h, tuple(map(torch.stack, (lru, conv, ks, vs)))
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """Mean next-token cross-entropy.  On CUDA the RG-LRU goes through
+    kernel B4, which has no backward yet: its wrapper raises when grad is
+    needed."""
+    x = embed_tokens(params["embed"], batch["tokens"])
+    h, _ = forward_full(cfg, params, x)
+    h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)
+    logits = lm_logits(h, params["head"], cfg.vocab_size)
+    loss, _ = cross_entropy(logits, batch["labels"])
+    return loss, {}
 
 
 def _assemble_cache(cfg, states, pos_end):
@@ -259,7 +283,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache, batch: dict):
     pos + 1 (same tensors)."""
     pos = cache.pos
     slot = torch.remainder(pos, cache.window)
-    n_units, tail, _ = pattern_counts(cfg)
+    n_units = pattern_counts(cfg)[0]
     h = embed_tokens(params["embed"], batch["token"])
 
     def rec(pl, r, h):
@@ -268,13 +292,13 @@ def decode_step(cfg: ModelConfig, params: dict, cache, batch: dict):
         cache.conv[r].copy_(cv)
         return h
 
-    for i in range(n_units):
-        pu = layer_params(params["units"], i)
+    for i, pu in enumerate(unstack_layers(params["units"])):
         h = rec(pu["rec_a"], 2 * i, h)
         h = rec(pu["rec_b"], 2 * i + 1, h)
         h = _attn_block_step(cfg, pu["attn"], h, cache.k[i], cache.v[i], pos, slot)
-    for i in range(tail):
-        h = rec(layer_params(params["tail"]["rec"], i), 2 * n_units + i, h)
+    if "tail" in params:
+        for i, pl in enumerate(unstack_layers(params["tail"]["rec"])):
+            h = rec(pl, 2 * n_units + i, h)
 
     h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)
     logits = lm_logits(h, params["head"], cfg.vocab_size)

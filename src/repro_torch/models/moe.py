@@ -35,14 +35,16 @@ from repro_torch.models import dense
 from repro_torch.models.common import (
     ModelConfig,
     ParamDef,
+    cross_entropy,
     embed_tokens,
-    layer_params,
     lm_logits,
+    maybe_remat,
     mlp_defs,
     padded_vocab,
     rmsnorm,
     rope,
     swiglu,
+    unstack_layers,
 )
 
 
@@ -143,6 +145,49 @@ def _masked_take(operand: torch.Tensor, idx: torch.Tensor, oob: int) -> torch.Te
     return out * (idx < oob)[..., None].to(out.dtype)
 
 
+class _Dispatch(torch.autograd.Function):
+    """xt [T, d] -> expert buffer [E, C, d] through slot2tok [E, C]
+    (T = empty slot).  Backward: the reference's `_dispatch_bwd`, a gather
+    of the buffer's gradient through tok2slot [T, K] (E*C = dropped),
+    summed over each token's K pairs."""
+
+    @staticmethod
+    def forward(ctx, xt, slot2tok, tok2slot):
+        ctx.save_for_backward(tok2slot)
+        return _masked_take(xt, slot2tok, xt.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        tok2slot, = ctx.saved_tensors
+        E, C, d = g.shape
+        return _masked_take(g.reshape(E * C, d), tok2slot, E * C).sum(1), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y [E, C, d], gates [T, K] -> out [T, d]: each token's pairs gathered
+    from their slots through tok2slot and weighted by their gates.
+    Backward: the reference's `_combine_bwd`; the buffer's gradient is a
+    gather of the pairs' gradients through slot2pair [E, C] (T*K = empty)."""
+
+    @staticmethod
+    def forward(ctx, y, gates, tok2slot, slot2pair):
+        ctx.save_for_backward(y, gates, tok2slot, slot2pair)
+        E, C, d = y.shape
+        pairs = _masked_take(y.reshape(E * C, d), tok2slot, E * C)     # [T, K, d]
+        return (pairs * gates[..., None].to(pairs.dtype)).sum(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, gates, tok2slot, slot2pair = ctx.saved_tensors
+        E, C, d = y.shape
+        T, K = gates.shape
+        grad_pairs = g[:, None, :] * gates[..., None].to(g.dtype)      # [T, K, d]
+        grad_y = _masked_take(grad_pairs.reshape(T * K, d), slot2pair, T * K)
+        pairs = _masked_take(y.reshape(E * C, d), tok2slot, E * C)
+        grad_gates = (pairs.to(g.dtype) * g[:, None, :]).sum(-1)
+        return grad_y.to(y.dtype), grad_gates.to(gates.dtype), None, None
+
+
 def moe_ffn(cfg: ModelConfig, pl: dict, x: torch.Tensor, *,
             dropless: bool = False):
     """x [B, S, d] -> (y [B, S, d], aux_loss 0-d f32).
@@ -175,14 +220,13 @@ def _moe_ffn_inner(cfg: ModelConfig, pl: dict, x: torch.Tensor, *,
     C = expert_capacity(T, cfg, dropless=dropless)
     tab = dispatch_tables(eidx, E, C)
 
-    buf = _masked_take(xt, tab.slot2tok, T)                       # [E, C, d]
+    buf = _Dispatch.apply(xt, tab.slot2tok, tab.tok2slot)         # [E, C, d]
     g = F.silu(torch.bmm(buf, pl["w_gate"]).float())
     u = torch.bmm(buf, pl["w_up"])
     h = g.to(x.dtype) * u
     y = torch.bmm(h, pl["w_down"])                                # [E, C, d]
 
-    pairs = _masked_take(y.reshape(E * C, d), tab.tok2slot, E * C)  # [T, K, d]
-    out = (pairs * gates.to(y.dtype)[..., None]).sum(1).reshape(B, S, d)
+    out = _Combine.apply(y, gates.to(y.dtype), tab.tok2slot, tab.slot2pair).reshape(B, S, d)
     if cfg.n_shared_experts:
         sh = pl["shared"]
         out = out + swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
@@ -335,11 +379,11 @@ def param_defs(cfg: ModelConfig) -> dict:
 def _layers(cfg: ModelConfig, blocks: dict):
     """(layer params, is MoE) in cache order: the dense stack, then the MoE
     stack."""
-    nd = cfg.n_dense_layers
-    for i in range(nd):
-        yield layer_params(blocks["dense_blocks"], i), False
-    for i in range(cfg.n_layers - nd):
-        yield layer_params(blocks["moe_blocks"], i), True
+    if cfg.n_dense_layers:
+        for pl in unstack_layers(blocks["dense_blocks"]):
+            yield pl, False
+    for pl in unstack_layers(blocks["moe_blocks"]):
+        yield pl, True
 
 
 def _ffn(cfg, pl, x, moe: bool, *, dropless: bool = False):
@@ -358,11 +402,10 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                  dropless: bool = False):
     """Run both stacks over embeddings x [B, S, d].  Returns (hidden,
     aux_loss, caches): caches stacks the layers' (k, v), or (c_kv, k_rope)
-    under MLA, dense layers first; None unless `collect`."""
-    h = x
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    kvs = []
-    for pl, moe in _layers(cfg, params["blocks"]):
+    under MLA, dense layers first; None unless `collect`.  Each layer is
+    recomputed in the backward pass when cfg.remat is on."""
+
+    def body(h, aux, pl, moe):
         xin = rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps)
         if cfg.use_mla:
             a, *kv = mla_attention_full(cfg, pl["attn"], xin, window=window)
@@ -373,7 +416,14 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                          dropless=dropless)
         if a_loss is not None:
             aux = aux + a_loss
-        h = h + m
+        return h + m, aux, *kv
+
+    body = maybe_remat(body, cfg.remat)
+    h = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kvs = []
+    for pl, moe in _layers(cfg, params["blocks"]):
+        h, aux, *kv = body(h, aux, pl, moe)
         if collect:
             kvs.append(kv)
     if not collect:
@@ -384,6 +434,31 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # Registry API
 # ---------------------------------------------------------------------------
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """Cross-entropy + the routers' aux loss (+ 0.3 x the MTP head's loss,
+    which predicts token t+2 from h_t and the embedding of t+1).  Pairs
+    past an expert's capacity are dropped, as in the reference's training.
+    Returns (loss, {"aux_loss", and "mtp_loss" with MTP})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = embed_tokens(params["embed"], tokens)
+    h, aux, _ = forward_full(cfg, params, x, window=cfg.window)
+    h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)
+    logits = lm_logits(h, params["head"], cfg.vocab_size)
+    loss, _ = cross_entropy(logits, labels)
+    metrics = {"aux_loss": aux}
+    if cfg.mtp:
+        mtp = params["mtp"]
+        hm = rmsnorm(h[:, :-1], mtp["ln"]["w"], cfg.rmsnorm_eps)
+        z = torch.cat([hm, embed_tokens(params["embed"], tokens[:, 1:])], dim=-1) @ mtp["proj"]
+        mp = mtp["mlp"]
+        z = z + swiglu(z, mp["w_gate"], mp["w_up"], mp["w_down"])
+        mtp_logits = lm_logits(z, params["head"], cfg.vocab_size)
+        mtp_loss, _ = cross_entropy(mtp_logits, labels[:, 1:])
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+    return loss + aux, metrics
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *,

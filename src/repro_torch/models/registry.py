@@ -2,6 +2,7 @@
 
     api = get_api(cfg)
     params = api.init_params(cfg, generator, device)
+    loss, metrics = api.train_loss(cfg, params, batch)
     logits, cache = api.prefill(cfg, params, batch, cache_len=...)
     cache = api.init_cache(cfg, batch_size, cache_len, device=...)
     logits, cache = api.decode_step(cfg, params, cache, {"token": ...})
@@ -37,6 +38,7 @@ _FAMILIES = {
 class ModelAPI:
     family: str
     param_defs: Callable[[ModelConfig], dict]
+    train_loss: Callable
     prefill: Callable
     init_cache: Callable
     decode_step: Callable
@@ -59,6 +61,7 @@ def get_api(cfg_or_family: ModelConfig | str) -> ModelAPI:
     return ModelAPI(
         family=family,
         param_defs=mod.param_defs,
+        train_loss=mod.train_loss,
         prefill=mod.prefill,
         init_cache=mod.init_cache,
         decode_step=mod.decode_step,

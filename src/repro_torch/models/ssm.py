@@ -22,11 +22,13 @@ from repro_torch.models import cache as cachelib
 from repro_torch.models.common import (
     ModelConfig,
     ParamDef,
+    cross_entropy,
     embed_tokens,
-    layer_params,
     lm_logits,
+    maybe_remat,
     padded_vocab,
     rmsnorm,
+    unstack_layers,
 )
 
 
@@ -168,17 +170,33 @@ def mamba_block_decode(cfg: ModelConfig, pl: dict, x: torch.Tensor,
 def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                  collect: bool = False):
     """Run the layer stack over embeddings x [B,S,d].  Returns (hidden,
-    (final_states [L,B,H,P,N], conv_states [L,B,K-1,cc]) | None)."""
+    (final_states [L,B,H,P,N], conv_states [L,B,K-1,cc]) | None).  Each
+    layer is recomputed in the backward pass when cfg.remat is on."""
+
+    def body(h, pl):
+        y, final, conv = mamba_block_full(cfg, pl, rmsnorm(h, pl["ln"]["w"], cfg.rmsnorm_eps))
+        return h + y, final, conv
+
+    body = maybe_remat(body, cfg.remat)
     h = x
     finals, convs = [], []
-    for i in range(cfg.n_layers):
-        pl = layer_params(params["blocks"], i)
-        y, final, conv = mamba_block_full(cfg, pl, rmsnorm(h, pl["ln"]["w"], cfg.rmsnorm_eps))
-        h = h + y
+    for pl in unstack_layers(params["blocks"]):
+        h, final, conv = body(h, pl)
         if collect:
             finals.append(final)
             convs.append(conv)
     return h, ((torch.stack(finals), torch.stack(convs)) if collect else None)
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """Mean next-token cross-entropy.  On CUDA the SSD goes through kernel
+    B3, which has no backward yet: its wrapper raises when grad is needed."""
+    x = embed_tokens(params["embed"], batch["tokens"])
+    h, _ = forward_full(cfg, params, x)
+    h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)
+    logits = lm_logits(h, params["head"], cfg.vocab_size)
+    loss, _ = cross_entropy(logits, batch["labels"])
+    return loss, {}
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -204,8 +222,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache, batch: dict):
     """batch: {"token": [B] int32}.  Overwrites each layer's SSD and conv
     state in place and returns the cache with pos + 1 (same tensors)."""
     h = embed_tokens(params["embed"], batch["token"])
-    for i in range(cfg.n_layers):
-        pl = layer_params(params["blocks"], i)
+    for i, pl in enumerate(unstack_layers(params["blocks"])):
         y, st, cv = mamba_block_decode(cfg, pl, rmsnorm(h, pl["ln"]["w"], cfg.rmsnorm_eps),
                                        cache.state[i], cache.conv[i])
         cache.state[i].copy_(st)

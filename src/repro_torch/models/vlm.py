@@ -21,6 +21,7 @@ from repro_torch.models import dense
 from repro_torch.models.common import (
     ModelConfig,
     ParamDef,
+    cross_entropy,
     embed_tokens,
     lm_logits,
     rmsnorm,
@@ -54,6 +55,18 @@ def _embed_multimodal(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tens
     x_txt = embed_tokens(params["embed"], batch["tokens"])
     x_img = project_patches(params, batch["patches"], x_txt.dtype)
     return torch.cat([x_img, x_txt], dim=1)
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """batch: {"patches": [B,P,VISION_DIM], "tokens": [B,S], "labels": [B,S]}.
+    Labels cover only the text positions; patch positions are ignored."""
+    x = _embed_multimodal(cfg, params, batch)
+    h, _ = dense.forward_full(cfg, params["blocks"], x, window=cfg.window)
+    h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)
+    P = batch["patches"].shape[1]
+    logits = lm_logits(h[:, P:], dense.head_matrix(cfg, params), cfg.vocab_size)
+    loss, _ = cross_entropy(logits, batch["labels"])
+    return loss, {}
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *,

@@ -11,26 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import flatten_tree
 from repro_torch.models import get_api
 from repro_torch.models.common import ModelConfig, _flatten_defs, _set_path
-
-
-def _flatten_tree(tree, prefix: str = "") -> dict:
-    out = {}
-    for k in sorted(tree):
-        path = f"{prefix}/{k}" if prefix else k
-        if isinstance(tree[k], dict):
-            out.update(_flatten_tree(tree[k], path))
-        else:
-            out[path] = tree[k]
-    return out
 
 
 def from_jax_params(cfg: ModelConfig, tree: dict, device) -> dict:
     """Copy a tree of numpy arrays shaped like `cfg`'s params onto `device`.
     Raises on a missing, extra, mis-shaped or mis-typed leaf."""
     defs = dict(_flatten_defs(get_api(cfg).param_defs(cfg)))
-    leaves = _flatten_tree(tree)
+    leaves = dict(flatten_tree(tree))
     missing, extra = sorted(defs.keys() - leaves.keys()), sorted(leaves.keys() - defs.keys())
     if missing or extra:
         raise ValueError(f"{cfg.name}: param tree missing {missing}, extra {extra}")

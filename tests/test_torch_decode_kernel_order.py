@@ -227,6 +227,8 @@ class CudaStub:
     """Stands for a CUDA tensor where there is no card: the attributes the
     wrapper reads before it launches."""
 
+    requires_grad = False
+
     def __init__(self, shape, dtype=torch.bfloat16):
         self.shape, self.dtype = torch.Size(shape), dtype
         self.device = torch.device("cuda", 0)

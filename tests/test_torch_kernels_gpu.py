@@ -33,6 +33,12 @@ cases follow the designs: S around B3's 64-step chunks, state sizes 16 to
 256, p-tiles of 16 to 64, two groups; B4's tiles (S = 4100), its float4
 edge (W = 4097) and unaligned inputs.
 
+B1, B3 and B4 have no backward: on CUDA inputs that need a gradient each
+wrapper raises, naming the missing backward, rather than return a tensor
+cut from the autograd graph; under `torch.no_grad()` the same inputs
+launch.  A dense and a MoE reduced model train one step on the card as on
+the CPU, and mamba2/recurrentgemma's step raises there.
+
 B2 (the analytic pass-cost surface) is held against its plain version on
 the card for the eight family branches, at rtol 1e-5 in float32 (the
 reference's gate for the TPU kernel) and 1e-12 in float64, and
@@ -43,12 +49,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import flatten_tree
 from repro_torch.configs import get_config
 from repro_torch.energy.simulator import AnalyticLLMSimulator
 from repro_torch.kernels import cost_batch as kcb
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import rglru_scan as krg
 from repro_torch.kernels import ssd_scan as kss
+from repro_torch.launch.steps import build_train_step, value_and_grad
 from repro_torch.models import get_api
 from repro_torch.serving import InferenceEngine
 
@@ -621,3 +629,74 @@ def test_cost_batch_rejects_what_the_kernel_does_not_take(cuda):
                                    device="cpu")
     np.testing.assert_allclose(f, pf, rtol=1e-5)
     np.testing.assert_allclose(b, pb, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# No backward: the wrappers refuse inputs that need a gradient
+# ---------------------------------------------------------------------------
+
+
+def _grad_cases():
+    """(wrapper's module, call on CUDA inputs that need a gradient)."""
+    xdt, dA, B, C, _ = ssd_inputs(1, 16, 2, 16, 1, 16, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = 0.7 + 0.299 * torch.rand((2, 8, 64), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((2, 8, 64), generator=gen, device="cuda")
+    q, k, v = inputs(2, 4, 2, 64, 32, torch.float32)
+    pos = torch.tensor(31, dtype=torch.int32, device="cuda")
+    return {
+        "B3": (kss, "B3", lambda: kss.ssd_scan(xdt.requires_grad_(), dA, B, C, chunk=8)),
+        "B4": (krg, "B4", lambda: krg.rglru_scan(a, b.requires_grad_())),
+        "B1": (kda, "B1", lambda: kda.decode_attention(q.requires_grad_(), k, v, pos)),
+    }
+
+
+@pytest.mark.parametrize("name", ["B1", "B3", "B4"])
+def test_wrapper_raises_when_grad_is_needed(cuda, name):
+    mod, kernel, call = _grad_cases()[name]
+    before = mod.launches
+    with pytest.raises(RuntimeError, match=f"kernel {kernel} has no backward"):
+        call()
+    assert mod.launches == before
+    with torch.no_grad():
+        call()
+    assert mod.launches == before + 1
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One AdamW step of qwen3-1.7b- and granite-moe-3b-a800m-reduced from
+    the same weights: losses within 1e-3 and gradients within 1e-2 of the
+    largest (f32, TF32 off)."""
+    for arch in ("qwen3-1.7b-reduced", "granite-moe-3b-a800m-reduced"):
+        cfg = get_config(arch)
+        api = get_api(cfg)
+        params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 32),
+                                                  dtype=np.int32)) for k in ("tokens", "labels")}
+        out = {}
+        for dev in ("cpu", "cuda"):
+            out[dev] = value_and_grad(lambda p, b: api.train_loss(cfg, p, b)[0],
+                                      _to(params, dev), {k: v.to(dev) for k, v in batch.items()})
+        assert abs(float(out["cuda"][0]) - float(out["cpu"][0])) <= 1e-3
+        ref = dict(flatten_tree(out["cpu"][1]))
+        for path, g in flatten_tree(out["cuda"][1]):
+            top = float(ref[path].abs().max())
+            assert float((g.cpu() - ref[path]).abs().max()) <= 1e-2 * max(top, 1e-12), path
+
+
+@pytest.mark.parametrize("arch,kernel", [("mamba2-130m-reduced", "B3"),
+                                         ("recurrentgemma-9b-reduced", "B4")])
+def test_scan_families_refuse_to_train_on_the_card(cuda, arch, kernel):
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), cuda)
+    step, opt = build_train_step(cfg)
+    batch = {k: torch.ones((2, 16), dtype=torch.int32, device="cuda")
+             for k in ("tokens", "labels")}
+    with pytest.raises(RuntimeError, match=f"kernel {kernel} has no backward"):
+        step(params, opt.init(params), batch)
+
+
+def _to(tree, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev)) for k, v in tree.items()}

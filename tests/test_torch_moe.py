@@ -27,7 +27,7 @@ from repro.serving import InferenceEngine as JEngine
 from repro_torch.configs import get_config, list_archs
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import get_api, moe
-from repro_torch.models.common import layer_params
+from repro_torch.models.common import unstack_layers
 from repro_torch.serving import InferenceEngine
 from repro_torch.weights import from_jax_params
 
@@ -73,7 +73,7 @@ def moe_layer(jparams, params, **edit):
     numpy arrays in `edit` (in both)."""
     jpl = jax.tree.map(lambda a: np.asarray(a[0]), jparams["blocks"]["moe_blocks"]["moe"])
     jpl.update(edit)
-    pl = layer_params(params["blocks"]["moe_blocks"], 0)["moe"]
+    pl = unstack_layers(params["blocks"]["moe_blocks"])[0]["moe"]
     pl.update({k: _t(v) for k, v in edit.items()})
     return jax.tree.map(jnp.asarray, jpl), pl
 

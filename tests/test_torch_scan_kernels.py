@@ -378,6 +378,8 @@ class CudaStub:
     """Stands for a CUDA tensor where there is no card: the attributes the
     wrappers read before they launch."""
 
+    requires_grad = False
+
     def __init__(self, shape, dtype=torch.float32):
         self.shape, self.dtype = torch.Size(shape), dtype
         self.device = torch.device("cuda", 0)
@@ -438,6 +440,33 @@ class TestWrappers:
         with pytest.raises(RuntimeError, match="nvcc"):
             kda.decode_attention(CudaStub((2, 16, 256)), CudaStub((2, 64, 1, 256)),
                                  CudaStub((2, 64, 1, 256)), CudaStub((), torch.int32), ring=True)
+
+    def test_cuda_tensors_that_need_a_gradient_raise(self, monkeypatch):
+        """B1, B3 and B4 have no backward: on a CUDA input that needs a
+        gradient each wrapper raises, naming it, before anything is built;
+        under no_grad the same call goes on to the build."""
+        from repro_torch.kernels import decode_attention as kda
+
+        class NeedsGrad(CudaStub):
+            requires_grad = True
+
+        calls = {
+            "B3": lambda T: kss.ssd_scan(T((2, 8, 4, 16)), CudaStub((2, 8, 4)),
+                                         CudaStub((2, 8, 1, 16)), CudaStub((2, 8, 1, 16)),
+                                         chunk=8),
+            "B4": lambda T: krg.rglru_scan(CudaStub((2, 8, 64)), T((2, 8, 64))),
+            "B1": lambda T: kda.decode_attention(T((2, 16, 256)), CudaStub((2, 64, 1, 256)),
+                                                 CudaStub((2, 64, 1, 256)),
+                                                 CudaStub((), torch.int32)),
+        }
+        for mod, plain in ((kss, "ssd_scan_plain"), (krg, "rglru_scan_plain"),
+                           (kda, "decode_attention_plain")):
+            _no_fallback(monkeypatch, mod, plain)
+        for kernel, call in calls.items():
+            with pytest.raises(RuntimeError, match=f"kernel {kernel} has no backward"):
+                call(NeedsGrad)
+            with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc"):
+                call(NeedsGrad)
 
     def test_bf16_state_sizes_off_the_mma_depth_raise(self, monkeypatch):
         """The bf16 kernel steps through the state in 16s: a bf16 call with
