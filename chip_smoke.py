@@ -6,7 +6,8 @@
 Phases, each of which must pass:
   1. device   the card's name and count, and `nvidia-smi`'s name and power limit;
   2. build    every CUDA kernel from src/repro_torch/kernels/csrc (B1, B2,
-              B3, B4), with the compiler's register/shared-memory report;
+              B3 and B4 with their backward kernels), with the compiler's
+              register/shared-memory report;
   3. check    each kernel against its plain PyTorch version on the card, at
               the main paths' shapes: B1 (q f32 within 1e-4, q bf16 within
               2e-2, elementwise and of the output's largest magnitude) at
@@ -19,14 +20,24 @@ Phases, each of which must pass:
               1e-12); B3 at mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16 within 2e-2 of
               the output's largest magnitude); B4 at recurrentgemma-9b's
               (1e-4); B3 and B4 also at the edges of their designs (chunk
-              and tile boundaries, state sizes 16..256, W % 4 != 0);
+              and tile boundaries, state sizes 16..256, W % 4 != 0); the
+              backward kernels of B3 and B4, through their autograd
+              Functions, against autograd of the plain versions (f32
+              within 2e-4 of each gradient's own largest magnitude, B3's
+              bf16 within 2e-2 of the same f32 reference beside the plain
+              bf16 version's own error) at phase 11's training shapes and the designs'
+              edges, with and without h0 and the final state's gradient,
+              bit for bit on repeat, and at S <= 64 against autograd of
+              the sequential oracles (kernels/ref.py);
   4. timing   each kernel, its plain version and, for B1, a library call
               (CUDA events, L2 flushed between launches), beside the bound
               for its bytes or operations; B1 also back to back with the
               L2 warm and its wrapper's host time a call; the timing's floor, a streaming
               yardstick for B4 and B3's time per chunk, and B3, B4, the
-              floor and the yardstick back to back with the L2 warm;
-              `simulate_batch` queries/s;
+              floor and the yardstick back to back with the L2 warm; the
+              B3 and B4 backward kernels at the training shapes beside
+              their bounds and autograd's backward through the plain
+              versions; `simulate_batch` queries/s;
   5. analytic the paper's §6.3 case study through the port's host modules
               (analytic campaign, Eq. 6/7 fits, ζ-sweep, baselines), then
               `cost_matrices` on the card over the llama2-7b/13b/70b fleet
@@ -41,7 +52,7 @@ Phases, each of which must pass:
               queries, serve with the KV cache on.  First llama2-7b and
               llama2-13b (characterized up to 32 tokens), where kernel B1's
               launch count must equal the decode work done; then
-              mamba2-130m and recurrentgemma-9b (characterized up to 32
+              mamba2-130m and recurrentgemma-9b (characterized up to 16
               tokens: SCAN_CHAR_MAX_TOKENS), where every prefill must launch
               B3 once per SSM layer or B4 once per recurrent layer, and
               every decode step B1 once per attention layer;
@@ -60,9 +71,10 @@ Phases, each of which must pass:
               full-width decode steps and prefills and the kernels' shares
               of it (profiler);
   8. moe      the MoE family through the same `serve`: granite-moe-3b-a800m
-              at full width and depth and mixtral-8x7b at full width cut to
-              8 of 32 layers (DEPTH_CUTS: 47 B parameters fit no 80 GB
-              card), random bf16 weights, characterized up to 16 tokens,
+              at full width cut to 16 of 32 layers and mixtral-8x7b at full
+              width cut to 4 of 32 layers (DEPTH_CUTS: 47 B parameters fit
+              no 80 GB card; both cut to keep the script inside its time
+              limit), random bf16 weights, characterized up to 16 tokens,
               24 queries routed and served, and one KV-on generate of each
               outside the router; B1's launches must equal the attention
               layers x decode steps.  Then the reduced mixtral, granite and
@@ -71,7 +83,7 @@ Phases, each of which must pass:
               busy share of a decode step (granite, mixtral, and
               deepseek-v3-671b cut to 4 layers, 3 dense + 1 MoE, in both
               MLA decode modes, where B1 must launch 0 times);
-  9. encdec + vlm  seamless-m4t-large-v2 (over 4,096 frames, cut to 12 of
+  9. encdec + vlm  seamless-m4t-large-v2 (over 4,096 frames, cut to 6 of
               its 24 encoder and 24 decoder layers: DEPTH_CUTS) and
               internvl2-2b (24 layers, 256 patches) at full width, random
               bf16 weights, with seeded
@@ -124,11 +136,21 @@ Phases, each of which must pass:
               against 2 + save + load + 2 with deterministic algorithms on,
               equal bit for bit; (d) one step of the reduced dense, moe
               (granite, deepseek-v3), encdec and vlm models on the card
-              against the CPU, and mamba2/recurrentgemma's step raising
-              there (B3 and B4 have no backward); (e) the training CLI,
+              against the CPU, mamba2's and recurrentgemma's through B3's
+              and B4's backward kernels; (e) the training CLI,
               `launch.train.main`, at qwen3-1.7b's full size on its default
               device: 4 steps that checkpoint, then 2 that resume from it,
-              both exiting 0.  No kernel launches in the phase.
+              both exiting 0, and 4 steps of mamba2-130m (batch 16 x 512);
+              (f) mamba2-130m at full size, remat on, batch 16 x 512, 6
+              steps, and (g) recurrentgemma-9b at full width cut to 6 of
+              its 38 layers (TRAIN_DEPTH_CUTS: AdamW at 38 layers needs
+              ~167 GB), batch 16 x 256, 4 steps, each printed as (a) is,
+              with B3's or B4's forward and backward shares of the
+              profiled step's busy time, and each step's launches held to
+              layers x (2 forward, the pass and remat's recompute; 1
+              backward).  B1 and B2 launch 0 times in the phase; B3's and
+              B4's forward and backward launches equal what the layers
+              run need.
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's sources beside it, or when any phase fails.  The last line is
@@ -158,15 +180,19 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 34e12}
 SERVE_ARCHS = ["llama2-7b", "llama2-13b"]
 SERVE_CHAR_MAX_TOKENS = 32      # the llama2 path's characterization grid top
 SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
-SCAN_CHAR_MAX_TOKENS = 32       # the scan path's grid top (64 before phase 9 came)
+SCAN_CHAR_MAX_TOKENS = 16       # the scan path's grid top (64 before phase 9, 32 before phase 11 (f)/(g))
 MOE_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b"]
 MOE_CHAR_MAX_TOKENS = 16        # the MoE path's characterization grid top
 # Depth cuts at full width: mixtral-8x7b's 32 layers (47 B parameters, ~94 GB
-# in bf16) and deepseek-v3-671b's 61 fit no 80 GB card; seamless-m4t-large-v2
-# is served with 12 of its 24 encoder and 24 decoder layers (an encdec cut is
-# per stack) to keep the script inside its time limit as it grows (its
-# KV-off characterization re-encodes 4,096 frames every call).
-DEPTH_CUTS = {"mixtral-8x7b": 8, "deepseek-v3-671b": 4, "seamless-m4t-large-v2": 12}
+# in bf16) and deepseek-v3-671b's 61 fit no 80 GB card.  To keep the script
+# inside its time limit on slow hosts (the serve phases are host-bound and
+# ran 1.5-2.1x slower on some hosts than on others), mixtral-8x7b is served
+# with 4 layers, granite-moe-3b-a800m with 16 of its 32 (phase 11 trains it
+# at full depth) and seamless-m4t-large-v2 with 6 of its 24 encoder and 24
+# decoder layers (an encdec cut is per stack; its KV-off characterization
+# re-encodes 4,096 frames every call).
+DEPTH_CUTS = {"mixtral-8x7b": 4, "granite-moe-3b-a800m": 16, "deepseek-v3-671b": 4,
+              "seamless-m4t-large-v2": 6}
 ENCDEC_VLM_ARCHS = ["seamless-m4t-large-v2", "internvl2-2b"]
 ENCDEC_VLM_CHAR_MAX_TOKENS = 16
 SERVE_QUERIES = 24
@@ -175,10 +201,18 @@ TRAIN_DENSE = ("qwen3-1.7b", 64, 128, 6)        # two microbatches of 32
 TRAIN_MOE = ("granite-moe-3b-a800m", 32, 128, 4)  # one microbatch
 TRAIN_RESUME_LAYERS = 2         # qwen3-1.7b's 28 layers cut for the resume check
 TRAIN_LR = 3e-4                 # repro.launch.train's default
+TRAIN_SSM = ("mamba2-130m", 16, 512, 6)        # 8 of B3's 64-step chunks a row
+TRAIN_HYBRID = ("recurrentgemma-9b", 16, 256, 4)  # one microbatch
+# recurrentgemma-9b's 38 layers with AdamW need ~167 GB, which fits no 80 GB
+# card: phase 11 (g) trains it at full width cut to two (rec, rec, attn) units
+TRAIN_DEPTH_CUTS = {"recurrentgemma-9b": 6}
+TRAIN_SSM_CLI = ("mamba2-130m", 16, 512, 4)     # (e)'s run of the CLI on B3
 TRAIN_REDUCED = ["qwen3-1.7b-reduced", "granite-moe-3b-a800m-reduced",
                  "deepseek-v3-671b-reduced", "seamless-m4t-large-v2-reduced",
-                 "internvl2-2b-reduced"]
-TRAIN_REFUSED = {"mamba2-130m-reduced": "B3", "recurrentgemma-9b-reduced": "B4"}
+                 "internvl2-2b-reduced", "mamba2-130m-reduced", "recurrentgemma-9b-reduced"]
+# the forward and backward kernels of the scans, by substring of their names
+SCAN_KERNEL_KEYS = {"B3 forward": ("ssd_chunk_scan",), "B3 backward": ("ssd_bwd_",),
+                    "B4 forward": ("rglru_scan_kernel",), "B4 backward": ("rglru_scan_bwd",)}
 BF16_DENSE_PEAK = 989.4e12      # H100 SXM data sheet, dense bf16 FLOP/s
 # one config per family branch of the pass-cost surface
 COST_ARCHS = ["llama2-7b", "mixtral-8x7b", "mistral-7b", "mamba2-130m", "recurrentgemma-9b",
@@ -1066,6 +1100,220 @@ def time_scans(torch, kss, krg) -> dict:
     return out
 
 
+# B3's backward at mamba2-130m's training shape (phase 11 (f)), the
+# forward's chunk edges (S = 1, 63, 64, 65, 129), state sizes 16..256 and
+# two groups; B4's at recurrentgemma-9b's training shape (phase 11 (g)),
+# a sequence of many tiles (S = 4100) and a width off the float4 grid.
+SSD_BWD_CASES = ([(16, 512, 24, 64, 1, 128)]
+                 + [(2, s, 24, 64, 1, 128) for s in (1, 63, 64, 65, 129)]
+                 + [(1, 65, 4, 16, 2, 16), (1, 129, 4, 32, 2, 64), (2, 129, 8, 64, 2, 256)])
+RGLRU_BWD_CASES = [(16, 256, 4096), (2, 4100, 4096), (2, 128, 4097)]
+SCAN_BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def scan_grads(torch, fn, inputs, cotangents) -> list:
+    """Gradients of sum(out . cotangent) (a None cotangent: the output is
+    unused, as the final state is in training) through fn, one per
+    non-None input; an input out of reach gets zeros."""
+    inputs = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*inputs)
+    loss = sum((o.float() * c).sum() for o, c in zip(outs, cotangents) if c is not None)
+    live = [t for t in inputs if t is not None]
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for g, t in zip(grads, live)]
+
+
+def grad_err(ours, ref) -> tuple[float, float]:
+    """(largest over the gradients of |ours - ref| over that gradient's own
+    largest |ref|, largest |ours - ref|).  A gradient whose reference is
+    under a thousandth of the largest one's (ddA at S = 1 without h0 is
+    zero analytically) is held at that thousandth instead."""
+    tops = [float(r.float().abs().max()) for r in ref]
+    floor = 1e-3 * max(max(tops), 1e-30)
+    errs = [float((o.float() - r.float()).abs().max()) for o, r in zip(ours, ref)]
+    return max(e / max(t, floor) for e, t in zip(errs, tops)), max(errs)
+
+
+def check_scan_backwards(torch, kss, krg, kref) -> dict:
+    """Each backward kernel, through its autograd Function, against autograd
+    of its plain version on the card (f32, TF32 off): each gradient of f32
+    inputs within 2e-4 of its own largest magnitude, of bf16 inputs (B3)
+    within 2e-2 of the same f32 reference, the plain bf16 version's own
+    error printed beside; with and without h0 and the final state's
+    gradient; two calls equal bit for bit.  At S <= 64 also against
+    autograd of the sequential oracles (kernels/ref.py).  Returns kernel
+    -> worst error per dtype over every case, relative and ("... abs")
+    absolute, and ("... train abs") the absolute error at the training
+    shape, the first case of each list."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = collections.defaultdict(float)
+    misses = []
+    ssd = lambda *t: kss.ssd_scan(*t[:4], chunk=256, h0=t[4])
+    ssd_plain = lambda *t: kss.ssd_scan_plain(*t[:4], chunk=256, h0=t[4])
+
+    def ssd_seq(*t):
+        h = t[0].shape[2]
+        return kref.ssd_scan_ref(t[0], t[1], t[2].repeat_interleave(h // t[2].shape[2], 2),
+                                 t[3].repeat_interleave(h // t[3].shape[2], 2), t[4])
+
+    for case in SSD_BWD_CASES:
+        b, s, h, p, g, n = case
+        xdt, dA, B, C, h0 = ssd_inputs(torch, *case, torch.float32, seed=s + b)
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+        dfin = torch.randn((b, h, p, n), generator=gen, device="cuda")
+        for init in (None, h0):
+            for d_final in (None, dfin):
+                args = [xdt, dA, B, C, init]
+                cots = [dy, d_final]
+                ref = scan_grads(torch, ssd_plain, args, cots)
+                ours = scan_grads(torch, ssd, args, cots)
+                again = scan_grads(torch, ssd, args, cots)
+                same = all(torch.equal(x, y) for x, y in zip(ours, again))
+                e32, a32 = grad_err(ours, ref)
+                bf = [t.bfloat16() for t in (xdt, B, C)]
+                args_bf = [bf[0], dA, bf[1], bf[2], init]
+                e16, a16 = grad_err(scan_grads(torch, ssd, args_bf, cots), ref)
+                e16_plain, _ = grad_err(scan_grads(torch, ssd_plain, args_bf, cots), ref)
+                ok = e32 <= SCAN_BWD_TOL["float32"] and e16 <= SCAN_BWD_TOL["bfloat16"] and same
+                label = (f"b={b} S={s} h={h} p={p} g={g} n={n} h0={'yes' if init is not None else 'no'}"
+                         f" d_final={'yes' if d_final is not None else 'no'}")
+                line = (f"[check] B3 backward {label}, error over each gradient's own largest: "
+                        f"f32 {e32:.3e} (tol 2e-4), bf16 {e16:.3e} "
+                        f"(tol 2e-2; the plain bf16 version's {e16_plain:.3e}), repeat bit-equal "
+                        f"{same}")
+                if s <= 64:
+                    e_seq, _ = grad_err(ours, scan_grads(torch, ssd_seq, args, cots))
+                    ok = ok and e_seq <= SCAN_BWD_TOL["float32"]
+                    line += f", against the sequential oracle {e_seq:.3e}"
+                print(f"{line} {'ok' if ok else 'MISS'}")
+                for key, val in (("float32", e32), ("bfloat16", e16), ("float32 abs", a32),
+                                 ("bfloat16 abs", a16)):
+                    worst[f"B3 bwd {key}"] = max(worst[f"B3 bwd {key}"], val)
+                if case == SSD_BWD_CASES[0]:
+                    worst["B3 bwd train bfloat16 abs"] = max(worst["B3 bwd train bfloat16 abs"],
+                                                             a16)
+                if not ok:
+                    misses.append(f"B3 backward {label}")
+        torch.cuda.synchronize()
+
+    def rglru_seq(a, b_, h0):
+        hs = kref.rglru_scan_ref(a, b_, h0)
+        return hs, hs[:, -1]
+
+    for Bsz, s, W in RGLRU_BWD_CASES + [(2, 48, 4096)]:
+        a, bb, h0 = rglru_inputs(torch, Bsz, s, W, seed=s)
+        dh = torch.randn((Bsz, s, W), generator=gen, device="cuda")
+        dlast = torch.randn((Bsz, W), generator=gen, device="cuda")
+        for init in (None, h0):
+            for d_last in (None, dlast):
+                args, cots = [a, bb, init], [dh, d_last]
+                ours = scan_grads(torch, krg.rglru_scan, args, cots)
+                again = scan_grads(torch, krg.rglru_scan, args, cots)
+                same = all(torch.equal(x, y) for x, y in zip(ours, again))
+                err, abs_err = grad_err(ours, scan_grads(torch, krg.rglru_scan_plain, args, cots))
+                ok = err <= SCAN_BWD_TOL["float32"] and same
+                label = (f"B={Bsz} S={s} W={W} {krg.plan(s, W)} h0={'yes' if init is not None else 'no'}"
+                         f" dh_last={'yes' if d_last is not None else 'no'}")
+                line = (f"[check] B4 backward {label}, error over each gradient's own largest: "
+                        f"{err:.3e} (tol 2e-4), repeat bit-equal {same}")
+                if s <= 64:
+                    e_seq, _ = grad_err(ours, scan_grads(torch, rglru_seq, args, cots))
+                    ok = ok and e_seq <= SCAN_BWD_TOL["float32"]
+                    line += f", against the sequential oracle {e_seq:.3e}"
+                print(f"{line} {'ok' if ok else 'MISS'}")
+                worst["B4 bwd float32"] = max(worst["B4 bwd float32"], err)
+                worst["B4 bwd float32 abs"] = max(worst["B4 bwd float32 abs"], abs_err)
+                if (Bsz, s, W) == RGLRU_BWD_CASES[0]:
+                    worst["B4 bwd train float32 abs"] = max(worst["B4 bwd train float32 abs"],
+                                                            abs_err)
+                if not ok:
+                    misses.append(f"B4 backward {label}")
+    torch.cuda.synchronize()
+    check(not misses, f"the B3/B4 backwards disagree with autograd of their plain versions: "
+                      f"{misses}")
+    return dict(worst)
+
+
+def ssd_bwd_cost(b, s, h, p, g, n, dtype_name) -> tuple[float, float, float]:
+    """(bytes the function moves, its operations, bytes the design moves)
+    for one B3 backward: xdt, dA, B, C and dy read, dxdt, ddA, dB and dC
+    written; the function's multiply-adds in the chunked form at the
+    design's 32-step chunks, two operations each, per chunk and head: the
+    adjoint walk (dS_in), C B^T and dy x^T on the causal triangle, dx, dB
+    and dC inside the chunk (triangle) and from the carried state and
+    dS_out, and dcs.  The entering states S_in are the forward's; the
+    design's second walk that recomputes them is not counted.  Beside them
+    the design's bytes, which add its f32 scratch (entering states and
+    adjoints written and read, per-head dB and dC partials written and
+    read)."""
+    size = 4 if dtype_name == "float32" else 2
+    Q = 32
+    nc = -(-s // Q)
+    bytes_ = 3 * b * s * h * p * size + 4 * b * s * g * n * size + 8 * b * s * h
+    tri = Q * (Q + 1) // 2
+    fma_chunk = (Q * p * n                     # adjoint walk
+                 + tri * n + tri * p            # C B^T, dy x^T
+                 + 3 * Q * p * n                # dx, dB, dC from S_in and dS_out
+                 + tri * p + 2 * tri * n        # dx, dB, dC inside the chunk
+                 + Q * (p + n) + tri + p * n)   # dcs
+    ops = 2 * fma_chunk * b * nc * h
+    scratch = 2 * (2 * 4 * b * h * nc * p * n) + 2 * (2 * 4 * b * s * h * n)
+    return bytes_, ops, bytes_ + scratch
+
+
+def time_scan_backwards(torch, kss, krg) -> dict:
+    """Each backward kernel at phase 11's training shapes (B3 bf16 b=16
+    S=512, mamba2-130m; B4 B=16 S=256 W=4096, recurrentgemma-9b), CUDA
+    events with the L2 flushed, beside its bound and the time of autograd's
+    backward through the plain version (its forward run once, outside the
+    timing).  No single PyTorch call computes either: no library time."""
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    shape = (16, 512, 24, 64, 1, 128)
+    xdt, dA, B, C, _ = ssd_inputs(torch, *shape, torch.bfloat16, seed=7)
+    dy = torch.randn(xdt.shape, generator=gen, device="cuda").bfloat16()
+    ins = [t.detach().requires_grad_() for t in (xdt, dA, B, C)]
+    y, _ = kss.ssd_scan_plain(*ins, chunk=256)
+    bytes_, ops, design = ssd_bwd_cost(*shape, "bfloat16")
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
+    out["B3 bwd train"] = {
+        "ms": time_ms(torch, lambda: kss._launch_bwd(xdt, dA, B, C, None, dy, None, False), flush,
+                      reps=10),
+        "plain_ms": time_ms(torch, lambda: torch.autograd.grad(y, ins, dy, retain_graph=True),
+                            flush, reps=10),
+        "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "shape": "b=16 S=512 h=24 p=64 g=1 n=128 bfloat16 (f32 arithmetic)",
+        "note": (f"{bytes_ / 1e6:.1f} MB in and out, {ops / 1e9:.2f} GFLOP "
+                 f"({t_ops * 1e3:.4f} ms at the bf16 rate; the built design does them on "
+                 f"the CUDA cores in f32, {ops / PEAK_OPS['float32'] * 1e3:.4f} ms at their "
+                 f"peak, and recomputes the entering states besides); the design moves "
+                 f"{design / 1e6:.1f} MB with its scratch "
+                 f"({design / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate)")}
+    del y, ins
+    a, bb, _ = rglru_inputs(torch, 16, 256, 4096, seed=7)
+    h, _ = krg.rglru_scan(a, bb)
+    dh = torch.randn(a.shape, generator=gen, device="cuda")
+    ins = [t.detach().requires_grad_() for t in (a, bb)]
+    h_p, _ = krg.rglru_scan_plain(*ins)
+    bytes_ = 5 * 4 * 16 * 256 * 4096
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, 3 * 16 * 256 * 4096 / PEAK_OPS["float32"]
+    out["B4 bwd train"] = {
+        "ms": time_ms(torch, lambda: krg._launch_bwd(a, h, None, dh, None, False), flush),
+        "plain_ms": time_ms(torch, lambda: torch.autograd.grad(h_p, ins, dh, retain_graph=True),
+                            flush),
+        "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "shape": "B=16 S=256 W=4096 float32",
+        "note": f"a, h, dh read and da, db written: {bytes_ / 1e6:.1f} MB"}
+    for name, t in out.items():
+        print(f"[time] {name} ({t['shape']}): kernel {t['ms']:.4f} ms, autograd of the plain "
+              f"version {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound; {t['note']}; card {nvidia_smi()}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The ssm + hybrid fleet's serve path
 # ---------------------------------------------------------------------------
@@ -1343,7 +1591,7 @@ def check_moe_outputs(torch, kda, serve_mod) -> None:
     (DEPTH_CUTS) decode against a re-forward and the device's share of a
     decode step, for granite-moe-3b-a800m and mixtral-8x7b (B1 in every
     layer) and deepseek-v3-671b in both MLA decode modes (no B1: its
-    launches over those decodes must be 0).  mixtral's 8-layer bf16
+    launches over those decodes must be 0).  mixtral's 4-layer bf16
     comparison is printed, not held: with random weights its stack
     amplifies bf16 rounding (tokens whose experts agree in every layer
     drift 0.05-0.09 apart, a flipped top-2 expert moves a token by ~1), so
@@ -2157,10 +2405,11 @@ def train_batches(torch, cfg, n, batch, seq, seed, device="cuda") -> list:
             for b in lm_train_batches(n, batch, seq, cfg.vocab_size, seed=seed, kind="markov")]
 
 
-def _train_breakdown(prof, label):
+def _train_breakdown(prof, label, shares=None):
     """Where the profiled step's device time goes: the optimizer's update
     (the `optimizer_update` range), the GEMMs (cuBLAS/CUTLASS kernels by
-    name) and the top kernels.  Returns the step's device busy ms (every
+    name), the kernels named in `shares` (label -> substrings of their
+    names) and the top kernels.  Returns the step's device busy ms (every
     kernel; the step starts and ends synchronized), None where the
     profiler saw no device time."""
     from torch.autograd import DeviceType
@@ -2178,12 +2427,18 @@ def _train_breakdown(prof, label):
     print(f"[train] {label}: the profiled step's device time {busy:.3f} ms: GEMM kernels "
           f"{gemm:.3f} ms ({gemm / busy:.3f}), the optimizer's update {update:.3f} ms "
           f"({update / busy:.3f}), {sum(e.count for e in kernels)} kernels")
+    for name, keys in (shares or {}).items():
+        mine = [e for e in kernels if any(k in e.key for k in keys)]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        print(f"[train] {label}: {name} kernels {ms:.3f} ms ({ms / busy:.4f} of the busy "
+              f"time), {sum(e.count for e in mine)} launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[train]   {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}")
     return busy
 
 
-def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None) -> dict:
+def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None,
+               shares=None) -> dict:
     """`steps` AdamW steps of `cfg` at full width on the card through
     `build_train_step`, random bf16 weights drawn on the card (seed 0).
     Step 1 warms up; step 2 runs under the profiler (its device busy ms
@@ -2194,8 +2449,8 @@ def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None) -> dic
     active ones) less the input embedding (a lookup, no matrix FLOPs; the
     share with it is printed beside).  `probe(opt)`, if given, is a
     context manager active over the steps; its `profiled` is set before
-    each step and its `step_done(i)` runs after each.  Returns the losses
-    and the probe."""
+    each step and its `step_done(i)` runs after each.  `shares` goes to
+    `_train_breakdown`.  Returns the losses and the probe."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models import get_api
@@ -2244,7 +2499,7 @@ def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None) -> dic
             if watch:
                 watch.step_done(i)
     peak = torch.cuda.max_memory_allocated()
-    busy = _train_breakdown(prof, label)
+    busy = _train_breakdown(prof, label, shares)
     tokens = batch * seq
     step_s = sum(walls[2:]) / (steps - 2) / 1e3
     for i in range(steps):
@@ -2347,6 +2602,92 @@ class MoEProbe:
         object.__setattr__(self.opt, "update", self.saved["update"])
 
 
+class ScanProbe:
+    """Over a scan family's training steps: each step's launches of B3's or
+    B4's forward and backward kernels, held to layers x (1 forward, 1 more
+    for remat's recompute; 1 backward) x microbatches."""
+
+    def __init__(self, mod, kernel, layers, passes, microbatches):
+        self.mod, self.kernel = mod, kernel
+        self.expect = (passes * layers * microbatches, layers * microbatches)
+        self.per_step = []
+        self.profiled = False
+
+    def counts(self):
+        return self.mod.launches, self.mod.bwd_launches
+
+    def step_done(self, i):
+        now = self.counts()
+        got = (now[0] - self.mark[0], now[1] - self.mark[1])
+        self.mark = now
+        self.per_step.append(got)
+        check(got == self.expect, f"step {i + 1}: {self.kernel} launched {got} times (forward, "
+                                  f"backward); the layers need {self.expect}")
+
+    def __enter__(self):
+        self.mark = self.counts()
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+def scan_layers(cfg) -> int:
+    """The layers that run B3 (ssm) or B4 (hybrid's recurrent ones)."""
+    from repro_torch.models import hybrid
+    return cfg.n_layers if cfg.family == "ssm" else hybrid.n_rec_layers(cfg)
+
+
+def train_scan_cell(torch, cfg, kernel, mod, batch, seq, steps, nvml, full_layers) -> tuple:
+    """(f)/(g): `train_cell` of mamba2 (B3) or recurrentgemma (B4) with the
+    scan's launches held each step and its kernels' share of the profiled
+    step.  Returns (forward, backward) launches over the cell."""
+    mb = cfg.microbatch if cfg.microbatch and cfg.microbatch < batch else batch
+    layers = scan_layers(cfg)
+    label = cfg.name if cfg.n_layers == full_layers else (
+        f"{cfg.name} ({cfg.n_layers} of {full_layers} layers)")
+    out = train_cell(torch, label, cfg, batch, seq, steps, nvml,
+                     probe=lambda opt: ScanProbe(mod, kernel, layers, 1 + cfg.remat, batch // mb),
+                     shares={k: v for k, v in SCAN_KERNEL_KEYS.items() if k.startswith(kernel)})
+    per_step = out["probe"].per_step
+    print(f"[train] {label}: {kernel} launches (forward, backward) per step {per_step}, "
+          f"{layers} layers x ({1 + cfg.remat} forward: remat {cfg.remat}; 1 backward) x "
+          f"{batch // mb} microbatch(es)")
+    return tuple(map(sum, zip(*per_step)))
+
+
+def train_cli(torch, arch, batch, seq, steps, mod, kernel) -> tuple:
+    """(e) `repro_torch.launch.train.main` on its default device, no
+    checkpoint: must return 0 with finite losses, the scan launched
+    layers x (1 + remat forward, 1 backward) x steps times.  Returns those
+    (forward, backward) launches."""
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = (mod.launches, mod.bwd_launches)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_mod.main(["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+                             "--seq", str(seq)])
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[train] main --arch {arch}: {line}")
+    got = (mod.launches - before[0], mod.bwd_launches - before[1])
+    layers = scan_layers(cfg)
+    want = ((1 + cfg.remat) * layers * steps, layers * steps)
+    print(f"[train] main --arch {arch}: rc {rc}, {time.perf_counter() - t0:.1f} s, {kernel} "
+          f"launches (forward, backward) {got}, the layers need {want}")
+    first, last = re.search(r"^loss (\S+) -> (\S+) improved", out, re.M).groups()
+    check(rc == 0 and math.isfinite(float(first)) and math.isfinite(float(last)),
+          f"launch.train.main --arch {arch}: rc {rc}, loss {first} -> {last}")
+    check(got == want, f"launch.train.main --arch {arch}: {kernel} launched {got}, want {want}")
+    return got
+
+
 def train_resume(torch, cfg, full_layers, batch, seq) -> None:
     """(c) 4 steps straight against 2, a checkpoint saved, loaded and 2 more,
     under torch.use_deterministic_algorithms(True): parameters and
@@ -2446,16 +2787,19 @@ def train_main(torch, arch, batch, seq) -> None:
           "launch.train.main did not resume from its step-4 checkpoint")
 
 
-def train_reduced(torch) -> None:
+def train_reduced(torch, scan_mods) -> dict:
     """(d) one step's loss and gradients of each reduced family on the card
     against the CPU from the same weights (losses within 1e-3, gradients
     within 1e-2 of the largest), then the optimizer's update on the card;
-    mamba2 and recurrentgemma must refuse (B3 and B4 have no backward)."""
+    mamba2's and recurrentgemma's gradients on the card go through B3's
+    and B4's backward kernels, once a layer.  Returns kernel -> (forward,
+    backward) launches."""
     from repro_torch.checkpoint import flatten_tree
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_train_step, value_and_grad
     from repro_torch.models import get_api
-    for arch in TRAIN_REDUCED + list(TRAIN_REFUSED):
+    launched = collections.Counter()
+    for arch in TRAIN_REDUCED:
         cfg = get_config(arch)
         api = get_api(cfg)
         params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -2463,19 +2807,22 @@ def train_reduced(torch) -> None:
                  **frontend_batch(torch, cfg, 2, seed=2, device="cpu")}
         on_card = _map(params, lambda t: t.cuda())
         card_batch = {k: v.cuda() for k, v in batch.items()}
-        step_fn, opt = build_train_step(cfg, lr=TRAIN_LR)
-        if arch in TRAIN_REFUSED:
-            kernel = TRAIN_REFUSED[arch]
-            try:
-                step_fn(on_card, opt.init(on_card), card_batch)
-            except RuntimeError as e:
-                check(f"kernel {kernel} has no backward" in str(e), f"{arch}: {e}")
-                print(f"[train] reduced {arch}: the step raises on the card as it must: {e}")
-                continue
-            raise PhaseError(f"{arch}: a training step on the card did not raise")
+        _, opt = build_train_step(cfg, lr=TRAIN_LR)
         loss_fn = lambda p, b: api.train_loss(cfg, p, b)[0]
         cpu_loss, cpu_g = value_and_grad(loss_fn, params, batch)
+        kernel = {"ssm": "B3", "hybrid": "B4"}.get(cfg.family)
+        if kernel:
+            mod = scan_mods[kernel]
+            before = (mod.launches, mod.bwd_launches)
         loss, g = value_and_grad(loss_fn, on_card, card_batch)
+        if kernel:
+            got = (mod.launches - before[0], mod.bwd_launches - before[1])
+            want = ((1 + cfg.remat) * scan_layers(cfg), scan_layers(cfg))
+            print(f"[train] reduced {arch}: {kernel} launches (forward, backward) {got}, the "
+                  f"layers need {want}")
+            check(got == want, f"{arch}: {kernel} launched {got} times, want {want}")
+            launched[kernel + " forward"] += got[0]
+            launched[kernel + " backward"] += got[1]
         ref = dict(flatten_tree(cpu_g))
         worst = max(float((v.cpu() - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
                     for k, v in flatten_tree(g))
@@ -2486,13 +2833,18 @@ def train_reduced(torch) -> None:
               f"{finite}")
         check(abs(float(loss) - float(cpu_loss)) <= 1e-3, f"{arch}: card loss differs")
         check(worst <= 1e-2 and finite, f"{arch}: card gradients differ or go non-finite")
+    return launched
 
 
-def run_train(torch, kernel_mods) -> None:
+def run_train(torch, kernel_mods) -> dict:
     """Phase 11: (a) qwen3-1.7b and (b) granite-moe-3b-a800m trained at
     full width and depth, (c) resume bit for bit, (d) the reduced families
-    against the CPU, (e) the training CLI with a checkpoint and a resume.  No kernel lies on the training path: every kernel's
-    launch count is 0 over the phase."""
+    against the CPU, (e) the training CLI with a checkpoint and a resume,
+    and on B3 (mamba2-130m), (f) mamba2-130m at full size and (g)
+    recurrentgemma-9b at full width (TRAIN_DEPTH_CUTS) through B3 and B4
+    in both directions.  B1 and B2 launch 0 times over the phase; B3's and
+    B4's forward and backward launches must equal what the layers need.
+    Returns kernel -> (forward, backward) launches over the phase."""
     from repro_torch.configs import get_config
     try:
         nvml = Nvml()
@@ -2501,6 +2853,10 @@ def run_train(torch, kernel_mods) -> None:
         print(f"[train] NVML energy: not measured ({e})")
     for mod in kernel_mods.values():
         mod.launches = 0
+    scan_mods = {"B3": kernel_mods["B3"], "B4": kernel_mods["B4"]}
+    for mod in scan_mods.values():
+        mod.bwd_launches = 0
+    want = collections.Counter()
     t0 = time.perf_counter()
     arch, batch, seq, steps = TRAIN_DENSE
     train_cell(torch, arch, get_config(arch), batch, seq, steps, nvml)
@@ -2532,16 +2888,34 @@ def run_train(torch, kernel_mods) -> None:
     train_resume(torch, cfg.replace(n_layers=TRAIN_RESUME_LAYERS), cfg.n_layers, batch, seq)
     print(f"[train] (c) resume s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    train_reduced(torch)
+    want.update(train_reduced(torch, scan_mods))
     print(f"[train] (d) reduced families s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     arch, batch, seq, _ = TRAIN_DENSE
     train_main(torch, arch, batch, seq)
+    arch, batch, seq, steps = TRAIN_SSM_CLI
+    fwd, bwd = train_cli(torch, arch, batch, seq, steps, scan_mods["B3"], "B3")
+    want.update({"B3 forward": fwd, "B3 backward": bwd})
     print(f"[train] (e) launch.train.main s={time.perf_counter() - t0}")
+    for tag, (arch, batch, seq, steps), kernel in (("f", TRAIN_SSM, "B3"),
+                                                   ("g", TRAIN_HYBRID, "B4")):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        full = cfg.n_layers
+        cfg = cfg.replace(n_layers=TRAIN_DEPTH_CUTS.get(arch, full))
+        fwd, bwd = train_scan_cell(torch, cfg, kernel, scan_mods[kernel], batch, seq, steps,
+                                   nvml, full)
+        want.update({f"{kernel} forward": fwd, f"{kernel} backward": bwd})
+        print(f"[train] ({tag}) {arch} s={time.perf_counter() - t0}")
     launches = {name: mod.launches for name, mod in kernel_mods.items()}
-    print(f"[train] kernel launches over the phase: {launches} (no kernel lies on the "
-          f"training path)")
-    check(not any(launches.values()), f"a kernel launched on the training path: {launches}")
+    scans = {k: (mod.launches, mod.bwd_launches) for k, mod in scan_mods.items()}
+    print(f"[train] kernel launches over the phase: {launches}; B3, B4 (forward, backward) "
+          f"{scans}, the layers run need {dict(want)}")
+    check(launches["B1"] == 0 and launches["B2"] == 0,
+          f"B1 or B2 launched on the training path: {launches}")
+    check(all(scans[k] == (want[f"{k} forward"], want[f"{k} backward"]) for k in scans),
+          f"B3/B4 launches {scans} differ from the layers' {dict(want)}")
+    return scans
 
 
 def _map(tree, fn):
@@ -2565,6 +2939,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import cost_batch as kcb
     from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ref as kref
     from repro_torch.kernels import rglru_scan as krg
     from repro_torch.kernels import ssd_scan as kss
     from repro_torch.launch import serve as serve_mod
@@ -2585,9 +2960,11 @@ def main() -> int:
     shapes = decode_shapes(torch, serve_mod)
     errs = check_decode(torch, kda, shapes)
     scan_errs = check_scans(torch, kss, krg)
+    bwd_errs = check_scan_backwards(torch, kss, krg, kref)
     cost_errs = check_cost_batch(torch, kcb)
     timing = time_decode(torch, kda, shapes)
     timing.update(time_scans(torch, kss, krg))
+    timing.update(time_scan_backwards(torch, kss, krg))
     timing.update(time_cost_batch(torch, kcb))
     time_simulate_batch(torch, kcb)
     t0 = time.perf_counter()
@@ -2614,8 +2991,9 @@ def main() -> int:
     print(f"[phase] cluster (fig4, bench_cluster, card-fitted profiles, online router) "
           f"s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    run_train(torch, {"B1": kda, "B2": kcb, "B3": kss, "B4": krg})
-    print(f"[phase] training (qwen3-1.7b, granite-moe-3b-a800m, resume, reduced, CLI) "
+    train_scans = run_train(torch, {"B1": kda, "B2": kcb, "B3": kss, "B4": krg})
+    print(f"[phase] training (qwen3-1.7b, granite-moe-3b-a800m, resume, reduced, CLI, "
+          f"mamba2-130m, recurrentgemma-9b) "
           f"s={time.perf_counter() - t0}")
 
     def entry(name, source, replaces, n, err, shape):
@@ -2654,6 +3032,10 @@ def main() -> int:
         entry("rglru_scan (B4, RG-LRU linear recurrence)", "rglru_scan.cu",
               "src/repro/kernels/rglru_scan.py:53", scan_launches["B4"],
               scan_errs["B4 float32"], "B4 characterize"),
+        entry("ssd_scan backward (B3)", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:73",
+              train_scans["B3"][1], bwd_errs["B3 bwd train bfloat16 abs"], "B3 bwd train"),
+        entry("rglru_scan backward (B4)", "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:53",
+              train_scans["B4"][1], bwd_errs["B4 bwd train float32 abs"], "B4 bwd train"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -33,6 +33,19 @@
 // from the wrapper (kernels/rglru_scan.py `plan`), which picks them from
 // (B, S, W) so that a serve prefill's whole sequence is one tile and its
 // loads are all in flight together.
+//
+// Backward (`rglru_scan_bwd_kernel`).  With incoming gradients dh [B,S,W]
+// and dh_last [B,W] (null: zero), the adjoint is the same recurrence run
+// from the end with its coefficient one step ahead:
+//   g_{S-1} = dh_{S-1} + dh_last,   g_t = dh_t + a_{t+1} g_{t+1},
+//   db_t = g_t,   da_t = g_t h_{t-1} (h_{-1} = h0 or 0),   dh0 = a_0 g_0.
+// The kernel is the forward's segmented scan walked in reverse time
+// (reversed step r is t = S-1-r, its coefficient a_{t+1}, or 1 at r = 0
+// with dh_last as the carry-in), with an epilogue that reads the saved
+// forward h one step back.  Bound: bytes.  It reads a, h and dh and
+// writes da and db, 20 bytes a step a channel (plus the [B,W] rows), the
+// same split (`plan`) as the forward, one pass, no atomics: every output
+// element is written by one thread in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,6 +145,87 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (seg == 0 && active) *reinterpret_cast<T*>(h_last + (size_t)bb * W + w) = carry;
 }
 
+template <int V>
+__global__ void __launch_bounds__(256)
+rglru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                      const float* __restrict__ h0, const float* __restrict__ dh,
+                      const float* __restrict__ dh_last, float* __restrict__ da,
+                      float* __restrict__ db, float* __restrict__ dh0, int S, int W, int nseg,
+                      int seg_len) {
+  using Ops = Vec<V>;
+  using T = typename Ops::T;
+  constexpr int ct = kRowChannels / V;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* map_a = reinterpret_cast<T*>(smem);         // [nseg][ct]
+  T* map_b = map_a + nseg * ct;                  // [nseg][ct]
+
+  const int seg = threadIdx.x / ct, ci = threadIdx.x % ct;
+  const int w = (blockIdx.x * ct + ci) * V;
+  const int bb = blockIdx.y;
+  const bool active = w < W;
+  const size_t row = (size_t)bb * S * W + w;
+  const T* a_g = reinterpret_cast<const T*>(a + row);
+  const T* h_g = reinterpret_cast<const T*>(h + row);
+  const T* dh_g = reinterpret_cast<const T*>(dh + row);
+  T* da_g = reinterpret_cast<T*>(da + row);
+  T* db_g = reinterpret_cast<T*>(db + row);
+  const size_t step = W / V;
+
+  T carry = Ops::fill(0.f);
+  if (dh_last && active) carry = *reinterpret_cast<const T*>(dh_last + (size_t)bb * W + w);
+  T h_init = Ops::fill(0.f);
+  if (h0 && active) h_init = *reinterpret_cast<const T*>(h0 + (size_t)bb * W + w);
+  const int tile = nseg * seg_len;
+
+  for (int r0 = 0; r0 < S; r0 += tile) {
+    const int rs = r0 + seg * seg_len;           // this segment's first reversed step
+    const int n = active ? max(0, min(seg_len, S - rs)) : 0;
+    T cv[kMaxLen], gv[kMaxLen], hv[kMaxLen];
+#pragma unroll
+    for (int u = 0; u < kMaxLen; ++u) {
+      if (u < n) {
+        const int t = S - 1 - (rs + u);
+        cv[u] = t + 1 < S ? a_g[(size_t)(t + 1) * step] : Ops::fill(1.f);
+        gv[u] = dh_g[(size_t)t * step];
+        hv[u] = t >= 1 ? h_g[(size_t)(t - 1) * step] : h_init;
+      }
+    }
+    T A = Ops::fill(1.f), Bc = Ops::fill(0.f);
+#pragma unroll
+    for (int u = 0; u < kMaxLen; ++u) {
+      if (u < n) {
+        Bc = Ops::fma(cv[u], Bc, gv[u]);
+        A = Ops::mul(cv[u], A);
+      }
+    }
+    map_a[seg * ct + ci] = A;
+    map_b[seg * ct + ci] = Bc;
+    __syncthreads();
+
+    T gin = carry, mine = carry;
+#pragma unroll 4
+    for (int s = 0; s < nseg; ++s) {
+      if (s == seg) mine = gin;
+      gin = Ops::fma(map_a[s * ct + ci], gin, map_b[s * ct + ci]);
+    }
+    carry = gin;
+
+#pragma unroll
+    for (int u = 0; u < kMaxLen; ++u) {
+      if (u < n) {
+        const int t = S - 1 - (rs + u);
+        mine = Ops::fma(cv[u], mine, gv[u]);
+        db_g[(size_t)t * step] = mine;
+        da_g[(size_t)t * step] = Ops::mul(mine, hv[u]);
+      }
+    }
+    __syncthreads();
+  }
+  // carry is g_0 now
+  if (dh0 && seg == 0 && active)
+    *reinterpret_cast<T*>(dh0 + (size_t)bb * W + w) = Ops::mul(a_g[0], carry);
+}
+
 }  // namespace
 
 // a, b, h [B,S,W] and h0, h_last [B,W], all f32 and contiguous; h0 may be
@@ -158,5 +252,34 @@ extern "C" int rglru_scan_launch(const void* a, const void* b, const void* h0,
   else
     rglru_scan_kernel<1><<<grid, nseg * ct, smem, st>>>(
         af, bf, h0f, static_cast<float*>(h), static_cast<float*>(h_last), S, W, nseg, seg_len);
+  return cudaGetLastError();
+}
+
+// The backward: a, h, dh, da, db [B,S,W] and h0, dh_last, dh0 [B,W], all f32
+// and contiguous; h0 and dh_last may be null (zero), dh0 null when the
+// initial state's gradient is not wanted.  The split (vec, nseg, seg_len)
+// follows the forward's rules, with every pointer in the alignment rule.
+// Returns a cudaError_t.
+extern "C" int rglru_scan_bwd_launch(const void* a, const void* h, const void* h0,
+                                     const void* dh, const void* dh_last, void* da, void* db,
+                                     void* dh0, int B, int S, int W, int vec, int nseg,
+                                     int seg_len, void* stream) {
+  if (B < 1 || S < 1 || W < 1 || nseg < 1 || seg_len < 1 || seg_len > kMaxLen)
+    return cudaErrorInvalidValue;
+  if (vec != 1 && (vec != 4 || W % 4)) return cudaErrorInvalidValue;
+  const int ct = kRowChannels / vec;
+  if (nseg * ct > 256) return cudaErrorInvalidValue;
+  const dim3 grid((W + kRowChannels - 1) / kRowChannels, B);
+  const size_t smem = 2 * sizeof(float) * vec * ct * nseg;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (vec == 4)
+    rglru_scan_bwd_kernel<4><<<grid, nseg * ct, smem, st>>>(
+        f(a), f(h), f(h0), f(dh), f(dh_last), static_cast<float*>(da), static_cast<float*>(db),
+        static_cast<float*>(dh0), S, W, nseg, seg_len);
+  else
+    rglru_scan_bwd_kernel<1><<<grid, nseg * ct, smem, st>>>(
+        f(a), f(h), f(h0), f(dh), f(dh_last), static_cast<float*>(da), static_cast<float*>(db),
+        static_cast<float*>(dh0), S, W, nseg, seg_len);
   return cudaGetLastError();
 }

@@ -66,6 +66,48 @@
 // block per (16-row p-tile, head, batch), state in shared memory.  TF32
 // products would miss the f32 gate (atol 2e-4, rtol 1e-3), and f32 is not
 // on the full-width path.  Limits: P % 16 == 0, N <= 256.
+//
+// Backward (three kernels, one template over T, f32 arithmetic throughout;
+// `ssd_scan_bwd_launch`).  It differentiates the unrounded chunked form, so
+// a bf16 forward's gradients are those of its f32 function.  With cs_t the
+// cumulative sum of dA inside a chunk of kBQ = 32 steps, S_in the state
+// entering the chunk and dS_out the adjoint of the state leaving it:
+//   dS_in = e^{cs_last} dS_out + sum_t e^{cs_t} dy_t (x) C_t    (dh0 at c = 0)
+//   dx_j  = sum_{t>=j} e^{cs_t-cs_j} (C_t.B_j) dy_t + e^{cs_last-cs_j} dS_out B_j
+//   dB_j  = sum_{t>=j} e^{cs_t-cs_j} (dy_t.x_j) C_t + e^{cs_last-cs_j} dS_out^T x_j
+//   dC_t  = sum_{j<=t} e^{cs_t-cs_j} (dy_t.x_j) B_j + e^{cs_t} S_in^T dy_t
+// and dcs_t from the pair terms, the carried state and dS_out, summed from
+// the end of the chunk into ddA.
+//   1. `ssd_bwd_states_kernel`, one block per (16-row p-tile, head, batch):
+//      walks the chunks forward and writes each chunk's entering state
+//      S_in, then backward and writes each chunk's dS_out, and dh0.  Each
+//      thread keeps its state columns in registers.  No state is ever
+//      recovered by dividing by a decay (e^{-dA} overflows): the entering
+//      states are recomputed here, so the forward is left as it is.
+//      Scratch: 2 x b*h*ceil(s/32)*P*N f32 (at mamba2-130m's training
+//      shape b=16, s=512: 2 x 201 MB).
+//   2. `ssd_bwd_chunk_kernel`, one block per (chunk, head, batch), all
+//      chunks in parallel: C B^T masked by the decay, then over 16-row
+//      p-tiles of x, dy (stored [p][t]), S_in and dS_out the products
+//      dy x^T, dx (stored in T), and dy S_in and x dS_out, accumulated in
+//      registers four steps of a column a thread; then ddA (one warp: the
+//      pair terms' row and column sums, the carried state's, dS_out's, and
+//      a reverse scan) and the head's dB and dC, written as f32 partials
+//      per head (2 x b*s*h*N f32: 2 x 201 MB at that shape).
+//   3. `ssd_bwd_group_sum_kernel`: dB and dC of a group are the sums of
+//      its heads' partials, in head order, stored in T.
+// Every sum runs in a fixed order and every output element is written by
+// one thread, with no atomics: two calls give the same bits.  What bounds
+// the function: bytes, its inputs and outputs (85 MB at the training shape,
+// 0.026 ms at 3.35 TB/s), above its ~16 GFLOP at the card's bf16 rate
+// (0.017 ms).  The design as built is far from that: it does its products
+// as scalar f32 on the CUDA cores (0.25 ms at their peak), recomputes the
+// entering states, and moves ~1.3 GB of scratch (0.39 ms at the memory
+// rate).  What holds it back beyond those: the states kernel's 32
+// dependent chunk steps a block, each behind three barriers, and
+// shared-memory loads in the chunk kernel's scalar products; tensor cores
+// (3xTF32 for f32 accuracy) and on-chip reduction of the per-head partials
+// are the next steps.  Limits: P % 16 == 0, N <= 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -653,6 +695,425 @@ cudaError_t launch(void (*kernel)(const T*, const float*, const T*, const T*, co
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 32;             // backward chunk: one warp's lanes
+constexpr int kBwdThreads = 256;
+constexpr int kTS = kBQ + 4;        // shared row stride of the [p][t] x / dy tiles
+constexpr int kStCols = kMaxN / kF32Threads;  // state columns a states-kernel thread owns
+constexpr int kURIters = kMaxN / 32;          // (4-step, column) pieces of U, R a thread owns
+
+__device__ __forceinline__ float ldf(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ldf(const bf16* p, size_t i) { return __bfloat162float(p[i]); }
+__device__ __forceinline__ void stf(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void stf(bf16* p, size_t i, float v) { p[i] = __float2bfloat16_rn(v); }
+
+// Inclusive cumulative sum of dA over the chunk (zeros past S), by warp 0:
+// cs_s[t], din_s[t] = e^{cs_t}, dout_s[t] = e^{cs_last - cs_t}.
+__device__ __forceinline__ void chunk_decays(const float* dA, size_t base, int H, int len,
+                                             float* cs_s, float* din_s, float* dout_s) {
+  const int lane = threadIdx.x;
+  float cs = lane < len ? dA[base + (size_t)lane * H] : 0.f;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const float up = __shfl_up_sync(kFull, cs, off);
+    if (lane >= off) cs += up;
+  }
+  const float last = __shfl_sync(kFull, cs, kBQ - 1);
+  cs_s[lane] = cs;
+  din_s[lane] = expf(cs);
+  dout_s[lane] = expf(last - cs);
+}
+
+__host__ __device__ constexpr int bwd_states_smem_floats(int N) {
+  return kBQ * N + kBQ * kPT + 3 * kBQ;
+}
+
+// 1. Entering states S_in and outgoing adjoints dS_out of every chunk, and
+// dh0.  Thread tid owns state columns n = tid, tid + 128 of all 16 rows,
+// in registers; per step it reads its B (or C) value once and the step's
+// 16 decay-weighted x (or dy) values as four broadcast float4s.
+template <typename T>
+__global__ void __launch_bounds__(kF32Threads)
+ssd_bwd_states_kernel(const T* __restrict__ xdt, const float* __restrict__ dA,
+                      const T* __restrict__ Bm, const T* __restrict__ Cm,
+                      const float* __restrict__ h0, const T* __restrict__ dy,
+                      const float* __restrict__ d_final, float* __restrict__ states,
+                      float* __restrict__ dstates, float* __restrict__ dh0, int S, int H,
+                      int P, int G, int N) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* row_s = bwd_smem;              // [kBQ][N] B (forward walk) or C (backward walk)
+  float* v_s = row_s + kBQ * N;         // [kBQ][kPT] x e^{cs_last-cs_t} or dy e^{cs_t}
+  float* cs_s = v_s + kBQ * kPT;
+  float* din_s = cs_s + kBQ;
+  float* dout_s = din_s + kBQ;
+
+  const int p0 = blockIdx.x * kPT, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x;
+  const int nc = (S + kBQ - 1) / kBQ;
+  const size_t state_base = (((size_t)b * H + h) * P + p0) * N;
+  // chunk c's [kPT, N] slice of the scratch [b, h, nc, P, N]
+  auto slot = [&](int c) { return (((size_t)b * H + h) * nc + c) * P * N + (size_t)p0 * N; };
+  float st[kStCols][kPT];
+
+  for (int walk = 0; walk < 2; ++walk) {
+    const bool fwd = walk == 0;
+    const float* init = fwd ? h0 : d_final;
+    const T* rows = fwd ? Bm : Cm;
+    const T* vec = fwd ? xdt : dy;
+    float* out = fwd ? states : dstates;
+#pragma unroll
+    for (int k = 0; k < kStCols; ++k) {
+      const int n = tid + k * kF32Threads;
+#pragma unroll
+      for (int pp = 0; pp < kPT; ++pp)
+        st[k][pp] = init && n < N ? init[state_base + (size_t)pp * N + n] : 0.f;
+    }
+    for (int k = 0; k < nc; ++k) {
+      const int c = fwd ? k : nc - 1 - k;
+      const int t0 = c * kBQ, len = min(kBQ, S - t0);
+      __syncthreads();   // the last chunk's readers are done with the staging
+#pragma unroll
+      for (int q = 0; q < kStCols; ++q) {
+        const int n = tid + q * kF32Threads;
+        if (n < N)
+#pragma unroll
+          for (int pp = 0; pp < kPT; ++pp) out[slot(c) + (size_t)pp * N + n] = st[q][pp];
+      }
+      for (int i = tid; i < kBQ * N; i += kF32Threads) {
+        const int t = i / N, n = i % N;
+        row_s[i] = t < len ? ldf(rows, (((size_t)b * S + t0 + t) * G + g) * N + n) : 0.f;
+      }
+      for (int i = tid; i < kBQ * kPT; i += kF32Threads) {
+        const int t = i / kPT, pp = i % kPT;
+        v_s[i] = t < len ? ldf(vec, (((size_t)b * S + t0 + t) * H + h) * P + p0 + pp) : 0.f;
+      }
+      if (tid < 32) chunk_decays(dA, (size_t)b * S * H + (size_t)t0 * H + h, H, len, cs_s, din_s,
+                                 dout_s);
+      __syncthreads();
+      // forward:  S = e^{cs_last} S + sum_t e^{cs_last - cs_t} x_t (x) B_t
+      // backward: dS = e^{cs_last} dS + sum_t e^{cs_t} dy_t (x) C_t
+      const float* w_s = fwd ? dout_s : din_s;
+      for (int i = tid; i < kBQ * kPT; i += kF32Threads) v_s[i] *= w_s[i / kPT];
+      __syncthreads();
+      const float decay = din_s[kBQ - 1];
+#pragma unroll
+      for (int q = 0; q < kStCols; ++q)
+#pragma unroll
+        for (int pp = 0; pp < kPT; ++pp) st[q][pp] *= decay;
+      for (int t = 0; t < len; ++t) {
+        const float4* vr = reinterpret_cast<const float4*>(v_s + t * kPT);
+        const float4 v0 = vr[0], v1 = vr[1], v2 = vr[2], v3 = vr[3];
+        const float v[kPT] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w,
+                              v2.x, v2.y, v2.z, v2.w, v3.x, v3.y, v3.z, v3.w};
+#pragma unroll
+        for (int q = 0; q < kStCols; ++q) {
+          const int n = tid + q * kF32Threads;
+          if (n < N) {
+            const float r = row_s[t * N + n];
+#pragma unroll
+            for (int pp = 0; pp < kPT; ++pp) st[q][pp] = fmaf(v[pp], r, st[q][pp]);
+          }
+        }
+      }
+    }
+  }
+  if (dh0)
+#pragma unroll
+    for (int q = 0; q < kStCols; ++q) {
+      const int n = tid + q * kF32Threads;
+      if (n < N)
+#pragma unroll
+        for (int pp = 0; pp < kPT; ++pp) dh0[state_base + (size_t)pp * N + n] = st[q][pp];
+    }
+}
+
+// Row stride of the chunk kernel's [*, N] tiles: N rounded up to 4 (zeros
+// in the pad) for float4 reads along n, plus 4, so that 8 rows read at
+// once fall in distinct 4-bank groups.
+__host__ __device__ constexpr int bwd_row_stride(int N) { return (N + 3) / 4 * 4 + 4; }
+
+__host__ __device__ constexpr int bwd_chunk_smem_floats(int N) {
+  return 4 * kBQ * bwd_row_stride(N)   // B, C, U = dy S_in, R = x dS_out
+       + 2 * kPT * bwd_row_stride(N)   // S_in and dS_out tiles
+       + 3 * kBQ * (kBQ + 1)           // masked C B^T, dy x^T, masked dy x^T
+       + 2 * kPT * kTS                 // x and dy tiles, [p][t]
+       + 3 * kBQ                       // cs, e^{cs_t}, e^{cs_last - cs_t}
+       + kBwdThreads / 32;             // the <dS_out, S_in> reduction
+}
+
+// 2. Per (chunk, head, batch): dx, ddA, and the head's dB and dC partials.
+// U and R accumulate over the p-tiles in registers, four steps of one
+// column a piece, fed by float4 reads of the [p][t] tiles.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+ssd_bwd_chunk_kernel(const T* __restrict__ xdt, const float* __restrict__ dA,
+                     const T* __restrict__ Bm, const T* __restrict__ Cm,
+                     const T* __restrict__ dy, const float* __restrict__ states,
+                     const float* __restrict__ dstates, T* __restrict__ dxdt,
+                     float* __restrict__ ddA, float* __restrict__ dBp, float* __restrict__ dCp,
+                     int S, int H, int P, int G, int N) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  constexpr int QP = kBQ + 1;
+  const int NS = bwd_row_stride(N);
+  const int NR = NS - 4;                // N rounded up to 4
+  const int N4 = NR / 4;
+  float* b_s = bwd_smem;                // [kBQ][NS]
+  float* c_s = b_s + kBQ * NS;          // [kBQ][NS]
+  float* u_s = c_s + kBQ * NS;          // [kBQ][NS] U[t][n] = sum_p dy_t[p] S_in[p][n]
+  float* r_s = u_s + kBQ * NS;          // [kBQ][NS] R[j][n] = sum_p x_j[p] dS_out[p][n]
+  float* si_s = r_s + kBQ * NS;         // [kPT][NS] p-tile of S_in
+  float* so_s = si_s + kPT * NS;        // [kPT][NS] p-tile of dS_out
+  float* gm_s = so_s + kPT * NS;        // [kBQ][QP] e^{cs_t-cs_j} C_t.B_j, j <= t
+  float* dyx_s = gm_s + kBQ * QP;       // [kBQ][QP] dy_t.x_j
+  float* m_s = dyx_s + kBQ * QP;        // [kBQ][QP] e^{cs_t-cs_j} dy_t.x_j, j <= t
+  float* xt_s = m_s + kBQ * QP;         // [kPT][kTS] p-tile of x, [p][t]
+  float* dyt_s = xt_s + kPT * kTS;      // [kPT][kTS] p-tile of dy, [p][t]
+  float* cs_s = dyt_s + kPT * kTS;
+  float* din_s = cs_s + kBQ;
+  float* dout_s = din_s + kBQ;
+  float* red_s = dout_s + kBQ;          // [warps]
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nc = gridDim.x;
+  const int t0 = c * kBQ, len = min(kBQ, S - t0);
+  const size_t slot = (((size_t)b * H + h) * nc + c) * P * N;
+
+  for (int i = tid; i < kBQ * NR; i += kBwdThreads) {
+    const int t = i / NR, n = i % NR;
+    const bool v = t < len && n < N;
+    const size_t off = (((size_t)b * S + t0 + t) * G + g) * N + n;
+    b_s[t * NS + n] = v ? ldf(Bm, off) : 0.f;
+    c_s[t * NS + n] = v ? ldf(Cm, off) : 0.f;
+  }
+  for (int i = tid; i < kBQ * kBQ; i += kBwdThreads) dyx_s[(i / kBQ) * QP + i % kBQ] = 0.f;
+  if (warp == 0) chunk_decays(dA, (size_t)b * S * H + (size_t)t0 * H + h, H, len, cs_s, din_s,
+                              dout_s);
+  __syncthreads();
+
+  for (int i = tid; i < kBQ * kBQ; i += kBwdThreads) {
+    const int t = i / kBQ, j = i % kBQ;
+    float acc = 0.f;
+    if (j <= t) {
+      const float4* cr = reinterpret_cast<const float4*>(c_s + t * NS);
+      const float4* br = reinterpret_cast<const float4*>(b_s + j * NS);
+      for (int k = 0; k < N4; ++k) {
+        const float4 c4 = cr[k], b4 = br[k];
+        acc = fmaf(c4.x, b4.x, fmaf(c4.y, b4.y, fmaf(c4.z, b4.z, fmaf(c4.w, b4.w, acc))));
+      }
+      acc *= expf(cs_s[t] - cs_s[j]);
+    }
+    gm_s[t * QP + j] = acc;
+  }
+
+  float ua[kURIters][4], ra[kURIters][4];
+#pragma unroll
+  for (int it = 0; it < kURIters; ++it)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ua[it][e] = ra[it][e] = 0.f;
+  float dot = 0.f;                      // this thread's share of <dS_out, S_in>
+  for (int p0 = 0; p0 < P; p0 += kPT) {
+    __syncthreads();                    // gm_s is written; the last tile is read
+    for (int i = tid; i < kBQ * kPT; i += kBwdThreads) {
+      const int t = i / kPT, pp = i % kPT;
+      const bool v = t < len;
+      const size_t off = (((size_t)b * S + t0 + t) * H + h) * P + p0 + pp;
+      xt_s[pp * kTS + t] = v ? ldf(xdt, off) : 0.f;
+      dyt_s[pp * kTS + t] = v ? ldf(dy, off) : 0.f;
+    }
+    for (int i = tid; i < kPT * NR; i += kBwdThreads) {
+      const int pp = i / NR, n = i % NR;
+      const size_t off = slot + (size_t)(p0 + pp) * N + n;
+      si_s[pp * NS + n] = n < N ? states[off] : 0.f;
+      so_s[pp * NS + n] = n < N ? dstates[off] : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < kBQ * kBQ; i += kBwdThreads) {
+      const int t = i / kBQ, j = i % kBQ;
+      float acc = dyx_s[t * QP + j];
+#pragma unroll
+      for (int pp = 0; pp < kPT; ++pp) acc = fmaf(dyt_s[pp * kTS + t], xt_s[pp * kTS + j], acc);
+      dyx_s[t * QP + j] = acc;
+    }
+#pragma unroll
+    for (int it = 0; it < kURIters; ++it) {
+      const int i = tid + it * kBwdThreads;
+      if (i < (kBQ / 4) * N) {
+        const int tq = i / N, n = i % N;
+#pragma unroll 4
+        for (int pp = 0; pp < kPT; ++pp) {
+          const float4 d4 = *reinterpret_cast<const float4*>(dyt_s + pp * kTS + 4 * tq);
+          const float4 x4 = *reinterpret_cast<const float4*>(xt_s + pp * kTS + 4 * tq);
+          const float si = si_s[pp * NS + n], so = so_s[pp * NS + n];
+          ua[it][0] = fmaf(d4.x, si, ua[it][0]);
+          ua[it][1] = fmaf(d4.y, si, ua[it][1]);
+          ua[it][2] = fmaf(d4.z, si, ua[it][2]);
+          ua[it][3] = fmaf(d4.w, si, ua[it][3]);
+          ra[it][0] = fmaf(x4.x, so, ra[it][0]);
+          ra[it][1] = fmaf(x4.y, so, ra[it][1]);
+          ra[it][2] = fmaf(x4.z, so, ra[it][2]);
+          ra[it][3] = fmaf(x4.w, so, ra[it][3]);
+        }
+      }
+    }
+    for (int i = tid; i < kPT * N; i += kBwdThreads) {
+      const int pp = i / N, n = i % N;
+      dot = fmaf(so_s[pp * NS + n], si_s[pp * NS + n], dot);
+    }
+    for (int i = tid; i < kBQ * kPT; i += kBwdThreads) {
+      const int j = i / kPT, pp = i % kPT;
+      if (j >= len) continue;
+      float acc = 0.f;
+      for (int t = j; t < kBQ; ++t) acc = fmaf(gm_s[t * QP + j], dyt_s[pp * kTS + t], acc);
+      const float4* so = reinterpret_cast<const float4*>(so_s + pp * NS);
+      const float4* br = reinterpret_cast<const float4*>(b_s + j * NS);
+      float carried = 0.f;
+      for (int k = 0; k < N4; ++k) {
+        const float4 s4 = so[k], b4 = br[k];
+        carried = fmaf(s4.x, b4.x, fmaf(s4.y, b4.y, fmaf(s4.z, b4.z, fmaf(s4.w, b4.w, carried))));
+      }
+      stf(dxdt, (((size_t)b * S + t0 + j) * H + h) * P + p0 + pp, fmaf(dout_s[j], carried, acc));
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kURIters; ++it) {
+    const int i = tid + it * kBwdThreads;
+    if (i < (kBQ / 4) * N) {
+      const int tq = i / N, n = i % N;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        u_s[(4 * tq + e) * NS + n] = ua[it][e];
+        r_s[(4 * tq + e) * NS + n] = ra[it][e];
+      }
+    }
+  }
+  // <dS_out, S_in>: warps' sums, then warp 0 over them in order
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
+  if (lane == 0) red_s[warp] = dot;
+  __syncthreads();                      // dy x^T, U, R and the sums are complete
+
+  for (int i = tid; i < kBQ * kBQ; i += kBwdThreads) {
+    const int t = i / kBQ, j = i % kBQ;
+    m_s[t * QP + j] = j <= t ? expf(cs_s[t] - cs_s[j]) * dyx_s[t * QP + j] : 0.f;
+  }
+  if (warp == 0) {
+    // dcs_k: pair terms w_tj = gm_tj dyx_tj add at t and subtract at j;
+    // the carried state adds e^{cs_k} C_k.U_k; dS_out's input term
+    // v_j = e^{cs_last-cs_j} B_j.R_j subtracts at j and adds at the end,
+    // as does e^{cs_last} <dS_out, S_in>.
+    const int k = lane;
+    float row = 0.f, col = 0.f, cu = 0.f, bv = 0.f;
+    for (int j = 0; j < kBQ; ++j) {
+      row = fmaf(gm_s[k * QP + j], dyx_s[k * QP + j], row);
+      col = fmaf(gm_s[j * QP + k], dyx_s[j * QP + k], col);
+    }
+    for (int n = 0; n < N; ++n) {
+      cu = fmaf(c_s[k * NS + n], u_s[k * NS + n], cu);
+      bv = fmaf(b_s[k * NS + n], r_s[k * NS + n], bv);
+    }
+    const float v = dout_s[k] * bv;
+    float vsum = v;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) vsum += __shfl_xor_sync(kFull, vsum, off);
+    float total = 0.f;
+    for (int w = 0; w < kBwdThreads / 32; ++w) total += red_s[w];
+    float dcs = row - col + din_s[k] * cu - v;
+    if (k == kBQ - 1) dcs += vsum + din_s[kBQ - 1] * total;
+    // ddA_k = sum_{t >= k} dcs_t
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const float down = __shfl_down_sync(kFull, dcs, off);
+      if (k + off < 32) dcs += down;
+    }
+    if (k < len) ddA[((size_t)b * S + t0 + k) * H + h] = dcs;
+  }
+  __syncthreads();
+
+  // dB_j = sum_{t>=j} m_tj C_t + e^{cs_last-cs_j} R_j;  dC_t = sum_{j<=t} m_tj B_j + e^{cs_t} U_t
+  for (int i = tid; i < kBQ * N; i += kBwdThreads) {
+    const int r = i / N, n = i % N;
+    if (r >= len) continue;
+    float db = dout_s[r] * r_s[r * NS + n], dc = din_s[r] * u_s[r * NS + n];
+    for (int t = r; t < kBQ; ++t) db = fmaf(m_s[t * QP + r], c_s[t * NS + n], db);
+    for (int j = 0; j <= r; ++j) dc = fmaf(m_s[r * QP + j], b_s[j * NS + n], dc);
+    const size_t off = (((size_t)b * S + t0 + r) * H + h) * N + n;
+    dBp[off] = db;
+    dCp[off] = dc;
+  }
+}
+
+// 3. dB and dC per group: the group's heads' partials summed in head order.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+ssd_bwd_group_sum_kernel(const float* __restrict__ dBp, const float* __restrict__ dCp,
+                         T* __restrict__ dB, T* __restrict__ dC, size_t total, int H, int G,
+                         int N) {
+  const size_t i = (size_t)blockIdx.x * kBwdThreads + threadIdx.x;
+  if (i >= total) return;
+  const int n = i % N;
+  const size_t rest = i / N;
+  const int g = rest % G;
+  const size_t bs = rest / G;
+  const int hpg = H / G;
+  float sb = 0.f, sc = 0.f;
+  for (int k = 0; k < hpg; ++k) {
+    const size_t off = (bs * H + (size_t)g * hpg + k) * N + n;
+    sb += dBp[off];
+    sc += dCp[off];
+  }
+  stf(dB, i, sb);
+  stf(dC, i, sc);
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* xdt, const void* dA, const void* B, const void* C,
+                       const void* h0, const void* dy, const void* d_final, void* dxdt, void* ddA,
+                       void* dB, void* dC, void* dh0, void* states, void* dstates, void* dBp,
+                       void* dCp, int batch, int S, int H, int P, int G, int N, cudaStream_t st) {
+  const int nc = (S + kBQ - 1) / kBQ;
+  const size_t smem1 = sizeof(float) * bwd_states_smem_floats(N);
+  const size_t smem2 = sizeof(float) * bwd_chunk_smem_floats(N);
+  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_states_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const T* x = static_cast<const T*>(xdt);
+  const float* da = static_cast<const float*>(dA);
+  const T* bm = static_cast<const T*>(B);
+  const T* cm = static_cast<const T*>(C);
+  const T* g = static_cast<const T*>(dy);
+  ssd_bwd_states_kernel<T><<<dim3(P / kPT, H, batch), kF32Threads, smem1, st>>>(
+      x, da, bm, cm, static_cast<const float*>(h0), g, static_cast<const float*>(d_final),
+      static_cast<float*>(states), static_cast<float*>(dstates), static_cast<float*>(dh0), S, H,
+      P, G, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_chunk_kernel<T><<<dim3(nc, H, batch), kBwdThreads, smem2, st>>>(
+      x, da, bm, cm, g, static_cast<const float*>(states), static_cast<const float*>(dstates),
+      static_cast<T*>(dxdt), static_cast<float*>(ddA), static_cast<float*>(dBp),
+      static_cast<float*>(dCp), S, H, P, G, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)batch * S * G * N;
+  ssd_bwd_group_sum_kernel<T><<<(unsigned)((total + kBwdThreads - 1) / kBwdThreads), kBwdThreads,
+                                0, st>>>(static_cast<const float*>(dBp),
+                                         static_cast<const float*>(dCp), static_cast<T*>(dB),
+                                         static_cast<T*>(dC), total, H, G, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (xdt, B, C and y).  h0 may be null
@@ -675,5 +1136,29 @@ extern "C" int ssd_scan_launch(const void* xdt, const void* dA, const void* B,
                   bf16_smem_bytes(N, S), kThreads, xdt, dA, B, C, h0, y, final_state, batch,
                   S, H, P, G, N, st);
   }
+  return cudaErrorInvalidValue;
+}
+
+// The backward.  Inputs as the forward's, plus dy [b,s,h,p] in T and
+// d_final [b,h,p,n] f32 (null: zero); h0 may be null.  Outputs: dxdt
+// [b,s,h,p] and dB, dC [b,s,g,n] in T, ddA [b,s,h] f32, dh0 [b,h,p,n] f32
+// (null: not wanted).  Scratch from the caller, f32: states and dstates
+// [b,h,ceil(s/32),p,n], dBp and dCp [b,s,h,n].  P % 16 == 0, N <= 256, H a
+// multiple of G.  Returns a cudaError_t.
+extern "C" int ssd_scan_bwd_launch(const void* xdt, const void* dA, const void* B,
+                                   const void* C, const void* h0, const void* dy,
+                                   const void* d_final, void* dxdt, void* ddA, void* dB,
+                                   void* dC, void* dh0, void* states, void* dstates, void* dBp,
+                                   void* dCp, int dtype, int batch, int S, int H, int P, int G,
+                                   int N, void* stream) {
+  if (batch < 1 || S < 1 || P % kPT || N < 1 || N > kMaxN || G < 1 || H % G)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(xdt, dA, B, C, h0, dy, d_final, dxdt, ddA, dB, dC, dh0, states,
+                             dstates, dBp, dCp, batch, S, H, P, G, N, st);
+  if (dtype == 1)
+    return launch_bwd<bf16>(xdt, dA, B, C, h0, dy, d_final, dxdt, ddA, dB, dC, dh0, states,
+                            dstates, dBp, dCp, batch, S, H, P, G, N, st);
   return cudaErrorInvalidValue;
 }

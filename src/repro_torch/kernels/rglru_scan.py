@@ -16,9 +16,16 @@ it through shared memory, and replays its segment with that carry-in.
 `plan` picks the split from the shape; `segmented_scan_emulated` in
 tests/test_torch_scan_kernels.py follows the same split on the CPU.
 
+The backward kernel in the same source walks the adjoint recurrence
+g_t = dh_t + a_{t+1} g_{t+1} in reverse with the same split, and reads the
+saved h one step back for da_t = g_t h_{t-1}; `_RGLRUScan` wraps the two
+kernels as one `torch.autograd.Function`.
+
 `rglru_scan` is the one entry point.  For CPU tensors it runs
-`rglru_scan_plain`, the same function in plain PyTorch; for CUDA tensors
-it launches the kernel or raises, and never falls back.
+`rglru_scan_plain`, the same function in plain PyTorch, which autograd
+differentiates; for CUDA tensors it launches the kernel (through
+`_RGLRUScan` when an input needs a gradient) or raises, and never falls
+back.
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Launches of the CUDA kernel through `rglru_scan` since the last reset; a
-# run sets it to 0 and reads it to show that it went through B4.
+# Launches of the forward and the backward kernel since the last reset; a
+# run sets them to 0 and reads them to show that it went through B4.
 launches = 0
+bwd_launches = 0
 
 ROW_CHANNELS = 32    # channels a block covers: 128 bytes of a row (csrc kRowChannels)
 SEG_LEN = 8          # steps a thread holds in registers (csrc kMaxLen)
@@ -58,12 +66,14 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
     """The recurrence in plain PyTorch: a doubling (Hillis-Steele) scan of
     the affine maps (a_t, b_t), log2(S) whole-tensor steps, as the Pallas
     kernel does within a block.  a, b [B,S,W]; h0 [B,W] or None.
-    Returns (h [B,S,W] f32, h_last [B,W] f32)."""
-    a = a.float()
-    b = b.float()
+    Returns (h [B,S,W] f32, h_last [B,W] f32); float64 inputs stay
+    float64."""
+    dtype = torch.promote_types(a.dtype, torch.float32)
+    a = a.to(dtype)
+    b = b.to(dtype)
     if h0 is not None:
         # fold the initial state into the first step: h_1 = a_1 h_0 + b_1
-        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], dim=1)
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.to(dtype)[:, None], b[:, 1:]], dim=1)
     n = 1
     while n < a.shape[1]:
         b = torch.cat([b[:, :n], a[:, n:] * b[:, :-n] + b[:, n:]], dim=1)
@@ -74,8 +84,8 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None):
     """`rglru_scan_plain`'s function: the plain version on CPU tensors, the
-    CUDA kernel on CUDA tensors.  The kernel has no backward: on CUDA
-    inputs that need a gradient it raises."""
+    CUDA kernels on CUDA tensors, the backward kernel carrying the
+    gradients of a, b and h0 when one of them needs one."""
     if a.dim() != 3 or b.shape != a.shape or a.shape[1] < 1:
         raise ValueError(f"want a, b [B,S,W] of one shape; got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
@@ -90,10 +100,32 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None)
         raise ValueError(f"rglru_scan runs on CPU or CUDA tensors on one device; "
                          f"got {sorted(map(str, devices))}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("rglru_scan: kernel B4 has no backward yet, so its output "
-                           "would carry no gradient to its inputs; run it under "
-                           "torch.no_grad(), or train on the CPU")
+        return _RGLRUScan.apply(a, b, h0)
     return _launch(a, b, h0)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """B4 forward and backward.  The forward saves a, h and h0; the
+    backward takes dh and dh_last (None, the loss not reaching h_last in
+    training, counts as zeros) and returns da, db and dh0 in f32."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        ctx.set_materialize_grads(False)
+        h, h_last = _launch(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h, h0 = ctx.saved_tensors
+        if dh is None and dh_last is None:
+            return None, None, None
+        dh = torch.zeros_like(h) if dh is None else dh.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        want_h0 = h0 is not None and ctx.needs_input_grad[2]
+        return _launch_bwd(a, h, h0, dh, dh_last, want_h0)
 
 
 @functools.cache
@@ -126,3 +158,39 @@ def _launch(a, b, h0):
         raise RuntimeError(f"rglru_scan kernel launch failed: cudaError_t {err}")
     launches += 1
     return h, h_last
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load("rglru_scan").rglru_scan_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(a, h, h0, dh, dh_last, want_h0):
+    """The backward kernel: (da, db, dh0 or None), all f32."""
+    global bwd_launches
+    for name, t in (("a", a), ("h", h), ("h0", h0), ("dh", dh), ("dh_last", dh_last)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"the RG-LRU backward takes float32; {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    Bsz, S, W = a.shape
+    fn = _bwd_kernel()
+    da = torch.empty_like(a)
+    db = torch.empty_like(a)
+    dh0 = torch.empty((Bsz, W), dtype=torch.float32, device=a.device) if want_h0 else None
+    aligned = all(t is None or t.data_ptr() % 16 == 0
+                  for t in (a, h, h0, dh, dh_last, da, db, dh0))
+    vec, nseg, seg_len = plan(S, W, aligned)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = fn(a.data_ptr(), h.data_ptr(), ptr(h0), dh.data_ptr(), ptr(dh_last),
+             da.data_ptr(), db.data_ptr(), ptr(dh0), Bsz, S, W, vec, nseg, seg_len,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"rglru_scan backward kernel launch failed: cudaError_t {err}")
+    bwd_launches += 1
+    return da, db, dh0

@@ -20,11 +20,18 @@ and the reference round: the decay-masked scores, the state that enters a
 chunk, and the decay-weighted inputs of the state update.  f32 runs them
 in scalar f32 (32-step chunks): TF32 products would miss the f32 gate.
 
+The backward (`ssd_scan_bwd_launch`, three kernels over one template, f32
+arithmetic reading bf16 or f32) recomputes each 32-step chunk's entering
+state and the adjoint of its leaving state in a first pass, then computes
+every chunk's dx, ddA and per-head dB, dC in parallel, and sums the heads
+of a group in a fixed order; `_SSDScan` wraps forward and backward as one
+`torch.autograd.Function`.
+
 `ssd_scan` is the one entry point.  For CPU tensors it runs
-`ssd_scan_plain`, the port of `ssd_chunked` in plain PyTorch; for CUDA
-tensors it launches the kernel of the input type or raises, and never
-falls back.  The kernel has no backward: on CUDA inputs that need a
-gradient it raises rather than return a tensor cut from the graph.
+`ssd_scan_plain`, the port of `ssd_chunked` in plain PyTorch, which
+autograd differentiates; for CUDA tensors it launches the kernel of the
+input type (through `_SSDScan` when an input needs a gradient) or raises,
+and never falls back.
 """
 
 from __future__ import annotations
@@ -38,15 +45,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-# Launches of the CUDA kernel through `ssd_scan` since the last reset; a
-# run sets it to 0 and reads it to show that it went through B3.
+# Launches of the forward and the backward kernels since the last reset; a
+# run sets them to 0 and reads them to show that it went through B3.
 launches = 0
+bwd_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 P_TILE = 16          # head-dim rows of the state per block (csrc kPT)
 MAX_STATE = 256      # largest state size N the kernels take
 N_STEP = 16          # bf16: the state size is a multiple of the mma depth
 CHUNK = {torch.float32: 32, torch.bfloat16: 64}   # the kernels' chunk lengths
+BWD_CHUNK = 32       # the backward's chunk length (csrc kBQ)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +77,8 @@ def ssd_scan_plain(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     B, C [b,s,g,n] with h % g == 0, h0 [b,h,p,n] or None.  The sequence is
     zero-padded to a whole number of chunks (dA = 0, B = x = 0 leave the
     state as it is) and y cut back to s.
-    Returns (y [b,s,h,p] in xdt's dtype, final_state [b,h,p,n] f32)."""
+    Returns (y [b,s,h,p] in xdt's dtype, final_state [b,h,p,n] f32); the
+    f32 casts keep float64 inputs in float64."""
     b, s, h, p = xdt.shape
     g, n = B.shape[2], B.shape[3]
     B = B.repeat_interleave(h // g, dim=2)
@@ -80,7 +90,7 @@ def ssd_scan_plain(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         xdt, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xdt, B, C))
         dA = F.pad(dA, (0, 0, 0, pad))
 
-    f32 = torch.float32
+    f32 = torch.promote_types(xdt.dtype, torch.float32)
     xdt_c = xdt.reshape(b, nc, cl, h, p)
     dA_c = dA.reshape(b, nc, cl, h).to(f32)
     B_c = B.reshape(b, nc, cl, h, n)
@@ -118,10 +128,12 @@ def ssd_scan_plain(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
 def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, *, chunk: int, h0: torch.Tensor | None = None):
     """`ssd_scan_plain`'s function: the plain version on CPU tensors, the
-    CUDA kernel on CUDA tensors.  `chunk` is the plain version's chunk
-    length (the config's `ssm_chunk`); the kernels walk the sequence in
-    chunks of their own (`CHUNK`), which changes only the rounding order:
-    the chunked form is exact for any chunk length."""
+    CUDA kernels on CUDA tensors, the backward kernel carrying the
+    gradients of every input when one of them needs one.  `chunk` is the
+    plain version's chunk length (the config's `ssm_chunk`); the kernels
+    walk the sequence in chunks of their own (`CHUNK`, `BWD_CHUNK`), which
+    changes only the rounding order: the chunked form is exact for any
+    chunk length."""
     if xdt.dim() != 4 or dA.dim() != 3 or B.dim() != 4 or C.shape != B.shape:
         raise ValueError(f"want xdt [b,s,h,p], dA [b,s,h], B/C [b,s,g,n]; got "
                          f"{tuple(xdt.shape)}, {tuple(dA.shape)}, {tuple(B.shape)}, "
@@ -141,10 +153,34 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"ssd_scan runs on CPU or CUDA tensors on one device; "
                          f"got {sorted(map(str, devices))}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("ssd_scan: kernel B3 has no backward yet, so its output "
-                           "would carry no gradient to its inputs; run it under "
-                           "torch.no_grad(), or train on the CPU")
+        return _SSDScan.apply(xdt, dA, B, C, h0)
     return _launch(xdt, dA, B, C, h0)
+
+
+class _SSDScan(torch.autograd.Function):
+    """B3 forward and backward.  The forward saves its inputs (the
+    backward recomputes the chunk states from them); the backward takes dy
+    and d_final (None, the loss not reaching the final state in training,
+    counts as zeros) and returns dxdt, dB and dC (per group) in the
+    inputs' type, ddA and dh0 in f32."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, B, C, h0):
+        ctx.set_materialize_grads(False)
+        y, final = _launch(xdt, dA, B, C, h0)
+        ctx.save_for_backward(xdt, dA, B, C, h0)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        xdt, dA, B, C, h0 = ctx.saved_tensors
+        if dy is None and d_final is None:
+            return None, None, None, None, None
+        dy = torch.zeros_like(xdt) if dy is None else dy.to(xdt.dtype).contiguous()
+        if d_final is not None:
+            d_final = d_final.contiguous()
+        want_h0 = h0 is not None and ctx.needs_input_grad[4]
+        return _launch_bwd(xdt, dA, B, C, h0, dy, d_final, want_h0)
 
 
 @functools.cache
@@ -192,3 +228,50 @@ def _launch(xdt, dA, B, C, h0):
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t {err}")
     launches += 1
     return y, final
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load("ssd_scan").ssd_scan_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(xdt, dA, B, C, h0, dy, d_final, want_h0):
+    """The backward kernels: (dxdt, ddA, dB, dC, dh0 or None).  Scratch
+    (each chunk's entering state and outgoing adjoint, and the per-head
+    partials of dB and dC) is allocated here and freed on return."""
+    global bwd_launches
+    b, s, h, p = xdt.shape
+    g, n = B.shape[2], B.shape[3]
+    if xdt.dtype not in _DTYPE_CODES or any(t.dtype != xdt.dtype for t in (B, C, dy)):
+        raise TypeError(f"the SSD backward takes xdt, B, C and dy in one of float32 or "
+                        f"bfloat16; got {xdt.dtype}, {B.dtype}, {C.dtype}, {dy.dtype}")
+    if any(t is not None and t.dtype != torch.float32 for t in (dA, h0, d_final)):
+        raise TypeError("the SSD backward takes dA, h0 and d_final in float32")
+    if p % P_TILE or n > MAX_STATE:
+        raise ValueError(f"the SSD backward takes head dims that are multiples of "
+                         f"{P_TILE} and states up to {MAX_STATE}; got p={p}, n={n}")
+    for name, t in (("xdt", xdt), ("dA", dA), ("B", B), ("C", C), ("h0", h0), ("dy", dy),
+                    ("d_final", d_final)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    fn = _bwd_kernel()
+    f32, dev = torch.float32, xdt.device
+    nc = -(-s // BWD_CHUNK)
+    dxdt, dB, dC = torch.empty_like(xdt), torch.empty_like(B), torch.empty_like(C)
+    ddA = torch.empty((b, s, h), dtype=f32, device=dev)
+    dh0 = torch.empty((b, h, p, n), dtype=f32, device=dev) if want_h0 else None
+    states = torch.empty((2, b, h, nc, p, n), dtype=f32, device=dev)
+    partials = torch.empty((2, b, s, h, n), dtype=f32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = fn(xdt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), ptr(h0),
+             dy.data_ptr(), ptr(d_final), dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
+             dC.data_ptr(), ptr(dh0), states[0].data_ptr(), states[1].data_ptr(),
+             partials[0].data_ptr(), partials[1].data_ptr(), _DTYPE_CODES[xdt.dtype],
+             b, s, h, p, g, n, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: cudaError_t {err}")
+    bwd_launches += 1
+    return dxdt, ddA, dB, dC, dh0

@@ -239,8 +239,8 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
 
 def train_loss(cfg: ModelConfig, params: dict, batch: dict):
     """Mean next-token cross-entropy.  On CUDA the RG-LRU goes through
-    kernel B4, which has no backward yet: its wrapper raises when grad is
-    needed."""
+    kernel B4 in both directions (its backward kernel carries the
+    gradients)."""
     x = embed_tokens(params["embed"], batch["tokens"])
     h, _ = forward_full(cfg, params, x)
     h = rmsnorm(h, params["final_norm"]["w"], cfg.rmsnorm_eps)

@@ -33,11 +33,14 @@ cases follow the designs: S around B3's 64-step chunks, state sizes 16 to
 256, p-tiles of 16 to 64, two groups; B4's tiles (S = 4100), its float4
 edge (W = 4097) and unaligned inputs.
 
-B1, B3 and B4 have no backward: on CUDA inputs that need a gradient each
-wrapper raises, naming the missing backward, rather than return a tensor
-cut from the autograd graph; under `torch.no_grad()` the same inputs
-launch.  A dense and a MoE reduced model train one step on the card as on
-the CPU, and mamba2/recurrentgemma's step raises there.
+B1 has no backward: on CUDA inputs that need a gradient its wrapper
+raises, naming the missing backward, rather than return a tensor cut from
+the autograd graph; under `torch.no_grad()` the same inputs launch.  B3
+and B4 carry gradients through their backward kernels: held against
+autograd of the plain versions at chip_smoke.py's phase 3 shapes (each
+gradient of f32 inputs within 2e-4 of its own largest, of bf16 inputs within
+2e-2 of the f32 reference), bit for bit on repeat.  A dense, a MoE, the ssm and the hybrid
+reduced models train one step on the card as on the CPU.
 
 B2 (the analytic pass-cost surface) is held against its plain version on
 the card for the eight family branches, at rtol 1e-5 in float32 (the
@@ -45,10 +48,21 @@ reference's gate for the TPU kernel) and 1e-12 in float64, and
 `simulate_batch` on the card within 1e-9 relative of the numpy closed form.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+# chip_smoke.py's phase 3 shapes, limits and gradient helpers: mamba2-130m's
+# training shape, S around the forward's 64-step chunks and the backward's
+# 32-step ones, state sizes 16 to 256, two groups; recurrentgemma-9b's
+# training shape, many tiles, W % 4 != 0
+from chip_smoke import RGLRU_BWD_CASES, SCAN_BWD_TOL, SSD_BWD_CASES  # noqa: E402
+from chip_smoke import grad_err as _grad_err  # noqa: E402
+from chip_smoke import scan_grads as _scan_grads  # noqa: E402
 from repro_torch.checkpoint import flatten_tree
 from repro_torch.configs import get_config
 from repro_torch.energy.simulator import AnalyticLLMSimulator
@@ -632,35 +646,99 @@ def test_cost_batch_rejects_what_the_kernel_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
-# No backward: the wrappers refuse inputs that need a gradient
+# Gradients: B1 refuses inputs that need one; B3 and B4 carry them through
+# their backward kernels
 # ---------------------------------------------------------------------------
 
 
-def _grad_cases():
-    """(wrapper's module, call on CUDA inputs that need a gradient)."""
-    xdt, dA, B, C, _ = ssd_inputs(1, 16, 2, 16, 1, 16, torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    a = 0.7 + 0.299 * torch.rand((2, 8, 64), generator=gen, device="cuda")
-    b = 0.1 * torch.randn((2, 8, 64), generator=gen, device="cuda")
+def test_wrapper_raises_when_grad_is_needed(cuda):
+    """B1 has no backward: it raises on a CUDA input that needs a gradient,
+    and under no_grad the same input launches."""
     q, k, v = inputs(2, 4, 2, 64, 32, torch.float32)
     pos = torch.tensor(31, dtype=torch.int32, device="cuda")
-    return {
-        "B3": (kss, "B3", lambda: kss.ssd_scan(xdt.requires_grad_(), dA, B, C, chunk=8)),
-        "B4": (krg, "B4", lambda: krg.rglru_scan(a, b.requires_grad_())),
-        "B1": (kda, "B1", lambda: kda.decode_attention(q.requires_grad_(), k, v, pos)),
-    }
-
-
-@pytest.mark.parametrize("name", ["B1", "B3", "B4"])
-def test_wrapper_raises_when_grad_is_needed(cuda, name):
-    mod, kernel, call = _grad_cases()[name]
-    before = mod.launches
-    with pytest.raises(RuntimeError, match=f"kernel {kernel} has no backward"):
+    call = lambda: kda.decode_attention(q.requires_grad_(), k, v, pos)
+    before = kda.launches
+    with pytest.raises(RuntimeError, match="kernel B1 has no backward"):
         call()
-    assert mod.launches == before
+    assert kda.launches == before
     with torch.no_grad():
         call()
-    assert mod.launches == before + 1
+    assert kda.launches == before + 1
+
+
+def scan_grads(fn, inputs_, cotangents):
+    return _scan_grads(torch, fn, inputs_, cotangents)
+
+
+def grad_err(ours, ref):
+    """Largest over the gradients of |ours - ref| over that gradient's own
+    largest |ref| (chip_smoke.grad_err)."""
+    return _grad_err(ours, ref)[0]
+
+
+def ssd_fn(plain):
+    scan = kss.ssd_scan_plain if plain else kss.ssd_scan
+    return lambda x, dA, B, C, h0: scan(x, dA, B, C, chunk=256, h0=h0)
+
+
+@pytest.mark.parametrize("with_final", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_scan_backward_matches_autograd_of_plain(cuda, case, with_h0, with_final):
+    """f32 within 2e-4 of each gradient's largest (TF32 off); bf16 inputs
+    within 2e-2 of the same f32 reference (the backward differentiates the
+    unrounded function in f32).  One backward launch a call."""
+    b, s, h, p, g, n = case
+    xdt, dA, B, C, h0 = ssd_inputs(b, s, h, p, g, n, torch.float32, seed=s)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    dfin = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_final else None
+    args = [xdt, dA, B, C, h0 if with_h0 else None]
+    ref = scan_grads(ssd_fn(True), args, [dy, dfin])
+    before = kss.bwd_launches
+    assert grad_err(scan_grads(ssd_fn(False), args, [dy, dfin]), ref) <= SCAN_BWD_TOL["float32"]
+    assert kss.bwd_launches == before + 1
+    bf = [xdt.bfloat16(), dA, B.bfloat16(), C.bfloat16(), args[4]]
+    ours = scan_grads(ssd_fn(False), bf, [dy, dfin])
+    assert [t.dtype for t in ours[:4]] == [torch.bfloat16, torch.float32, torch.bfloat16,
+                                           torch.bfloat16]
+    assert grad_err(ours, ref) <= SCAN_BWD_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("with_last", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES)
+def test_rglru_scan_backward_matches_autograd_of_plain(cuda, case, with_h0, with_last):
+    Bsz, S, W = case
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    a = 0.7 + 0.299 * torch.rand((Bsz, S, W), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((Bsz, S, W), generator=gen, device="cuda")
+    h0 = torch.randn((Bsz, W), generator=gen, device="cuda") if with_h0 else None
+    dh = torch.randn((Bsz, S, W), generator=gen, device="cuda")
+    dlast = torch.randn((Bsz, W), generator=gen, device="cuda") if with_last else None
+    ref = scan_grads(krg.rglru_scan_plain, [a, b, h0], [dh, dlast])
+    before = krg.bwd_launches
+    assert (grad_err(scan_grads(krg.rglru_scan, [a, b, h0], [dh, dlast]), ref)
+            <= SCAN_BWD_TOL["float32"])
+    assert krg.bwd_launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_backwards_repeat_bit_for_bit(cuda, dtype):
+    """No atomics and a fixed order of every sum: two calls on the same
+    inputs give the same bits (the training path's resume check runs with
+    deterministic algorithms on)."""
+    xdt, dA, B, C, h0 = ssd_inputs(4, 200, 24, 64, 1, 128, getattr(torch, dtype), seed=3)
+    dy = torch.randn(xdt.shape, device="cuda")
+    first = scan_grads(ssd_fn(False), [xdt, dA, B, C, h0], [dy, None])
+    for x, y in zip(first, scan_grads(ssd_fn(False), [xdt, dA, B, C, h0], [dy, None])):
+        assert torch.equal(x, y)
+    a = 0.7 + 0.299 * torch.rand((4, 300, 4096), device="cuda")
+    b = 0.1 * torch.randn((4, 300, 4096), device="cuda")
+    dh = torch.randn_like(a)
+    first = scan_grads(krg.rglru_scan, [a, b, None], [dh, None])
+    for x, y in zip(first, scan_grads(krg.rglru_scan, [a, b, None], [dh, None])):
+        assert torch.equal(x, y)
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):
@@ -668,34 +746,45 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     the same weights: losses within 1e-3 and gradients within 1e-2 of the
     largest (f32, TF32 off)."""
     for arch in ("qwen3-1.7b-reduced", "granite-moe-3b-a800m-reduced"):
-        cfg = get_config(arch)
-        api = get_api(cfg)
-        params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        rng = np.random.default_rng(0)
-        batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 32),
-                                                  dtype=np.int32)) for k in ("tokens", "labels")}
-        out = {}
-        for dev in ("cpu", "cuda"):
-            out[dev] = value_and_grad(lambda p, b: api.train_loss(cfg, p, b)[0],
-                                      _to(params, dev), {k: v.to(dev) for k, v in batch.items()})
-        assert abs(float(out["cuda"][0]) - float(out["cpu"][0])) <= 1e-3
-        ref = dict(flatten_tree(out["cpu"][1]))
-        for path, g in flatten_tree(out["cuda"][1]):
-            top = float(ref[path].abs().max())
-            assert float((g.cpu() - ref[path]).abs().max()) <= 1e-2 * max(top, 1e-12), path
+        assert_step_matches_cpu(cuda, arch)
 
 
-@pytest.mark.parametrize("arch,kernel", [("mamba2-130m-reduced", "B3"),
-                                         ("recurrentgemma-9b-reduced", "B4")])
-def test_scan_families_refuse_to_train_on_the_card(cuda, arch, kernel):
+def assert_step_matches_cpu(cuda, arch):
     cfg = get_config(arch)
+    api = get_api(cfg)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 32), dtype=np.int32))
+             for k in ("tokens", "labels")}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = value_and_grad(lambda p, b: api.train_loss(cfg, p, b)[0],
+                                  _to(params, dev), {k: v.to(dev) for k, v in batch.items()})
+    assert abs(float(out["cuda"][0]) - float(out["cpu"][0])) <= 1e-3
+    ref = dict(flatten_tree(out["cpu"][1]))
+    for path, g in flatten_tree(out["cuda"][1]):
+        top = float(ref[path].abs().max())
+        assert float((g.cpu() - ref[path]).abs().max()) <= 1e-2 * max(top, 1e-12), path
+
+
+@pytest.mark.parametrize("arch,mod", [("mamba2-130m-reduced", kss),
+                                      ("recurrentgemma-9b-reduced", krg)])
+def test_scan_families_train_on_the_card_as_on_the_cpu(cuda, arch, mod):
+    """mamba2's and recurrentgemma's gradients on the card go through B3's
+    and B4's backward kernels, one launch a scan layer, and match the CPU's
+    at the limits of the other families; a step of the optimizer follows."""
+    cfg = get_config(arch)
+    layers = cfg.n_layers if cfg.family == "ssm" else 4       # 4 recurrent layers of 5
+    before = mod.bwd_launches
+    assert_step_matches_cpu(cuda, arch)
+    assert mod.bwd_launches == before + layers
     api = get_api(cfg)
     params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), cuda)
     step, opt = build_train_step(cfg)
     batch = {k: torch.ones((2, 16), dtype=torch.int32, device="cuda")
              for k in ("tokens", "labels")}
-    with pytest.raises(RuntimeError, match=f"kernel {kernel} has no backward"):
-        step(params, opt.init(params), batch)
+    loss, params, _ = step(params, opt.init(params), batch)
+    assert np.isfinite(float(loss))
 
 
 def _to(tree, dev):

@@ -442,9 +442,11 @@ class TestWrappers:
                                  CudaStub((2, 64, 1, 256)), CudaStub((), torch.int32), ring=True)
 
     def test_cuda_tensors_that_need_a_gradient_raise(self, monkeypatch):
-        """B1, B3 and B4 have no backward: on a CUDA input that needs a
-        gradient each wrapper raises, naming it, before anything is built;
-        under no_grad the same call goes on to the build."""
+        """B1 has no backward: on a CUDA input that needs a gradient its
+        wrapper raises, naming it, before anything is built; under no_grad
+        the same call goes on to the build.  B3 and B4 have backward
+        kernels: such an input goes through their autograd Function on to
+        the build (here: no nvcc), never to the plain version."""
         from repro_torch.kernels import decode_attention as kda
 
         class NeedsGrad(CudaStub):
@@ -462,11 +464,21 @@ class TestWrappers:
         for mod, plain in ((kss, "ssd_scan_plain"), (krg, "rglru_scan_plain"),
                            (kda, "decode_attention_plain")):
             _no_fallback(monkeypatch, mod, plain)
-        for kernel, call in calls.items():
-            with pytest.raises(RuntimeError, match=f"kernel {kernel} has no backward"):
-                call(NeedsGrad)
+        with pytest.raises(RuntimeError, match="kernel B1 has no backward"):
+            calls["B1"](NeedsGrad)
+        with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc"):
+            calls["B1"](NeedsGrad)
+        entered = []
+        for kernel, fn in (("B3", kss._SSDScan), ("B4", krg._RGLRUScan)):
+            def spy(ctx, *args, kernel=kernel, forward=fn.forward):
+                entered.append(kernel)
+                return forward(ctx, *args)
+            monkeypatch.setattr(fn, "forward", staticmethod(spy))
+            with pytest.raises(RuntimeError, match="nvcc"):
+                calls[kernel](NeedsGrad)
             with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc"):
-                call(NeedsGrad)
+                calls[kernel](NeedsGrad)
+        assert entered == ["B3", "B4"]
 
     def test_bf16_state_sizes_off_the_mma_depth_raise(self, monkeypatch):
         """The bf16 kernel steps through the state in 16s: a bf16 call with

@@ -207,11 +207,13 @@ class TestIsolation:
     @pytest.mark.parametrize("mod", ["repro_torch.models.encdec", "repro_torch.models.vlm",
                                      "repro_torch.configs.shapes", "repro_torch.optim",
                                      "repro_torch.checkpoint", "repro_torch.launch.steps",
-                                     "repro_torch.launch.train"])
+                                     "repro_torch.launch.train", "repro_torch.kernels.ref",
+                                     "repro_torch.kernels.ops"])
     def test_encdec_vlm_modules_alone_load_no_jax_or_repro(self, mod):
-        """The encdec and vlm ports, the input shapes and the training
-        path's modules, each imported first in a fresh interpreter (the JAX
-        package's counterparts import JAX)."""
+        """The encdec and vlm ports, the input shapes, the training path's
+        modules and the kernels' oracles and public names, each imported
+        first in a fresh interpreter (the JAX package's counterparts import
+        JAX)."""
         res = subprocess.run([sys.executable, "-c", ALONE.format(mod=mod)],
                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                              capture_output=True, text=True, timeout=120)
