@@ -882,6 +882,22 @@ def _profile(torch, fn, steps):
     return wall_ms, events or None, "the profiler saw no device time"
 
 
+def kernel_split(torch, fn, pattern, steps=10) -> dict | None:
+    """Device ms per call of each kernel fn launches whose name matches the
+    regular expression `pattern` (its first group names it), from
+    torch.profiler over `steps` calls with the L2 warm; None if the
+    profiler saw no device time."""
+    _, events, _ = _profile(torch, fn, steps)
+    if not events:
+        return None
+    split = collections.defaultdict(float)
+    for e in events:
+        m = re.search(pattern, e.key)
+        if m:
+            split[m.group(1)] += e.self_device_time_total / 1e3 / steps
+    return dict(split)
+
+
 def _breakdown(label, wall_ms, events, why, steps, kernel_keys, kernel_label) -> None:
     if not events:
         print(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy share not measured ({why})")
@@ -1123,15 +1139,21 @@ def scan_grads(torch, fn, inputs, cotangents) -> list:
     return [torch.zeros_like(t) if g is None else g for g, t in zip(grads, live)]
 
 
-def grad_err(ours, ref) -> tuple[float, float]:
-    """(largest over the gradients of |ours - ref| over that gradient's own
-    largest |ref|, largest |ours - ref|).  A gradient whose reference is
-    under a thousandth of the largest one's (ddA at S = 1 without h0 is
-    zero analytically) is held at that thousandth instead."""
+def grad_errs(ours, ref) -> list[float]:
+    """Per gradient, |ours - ref| over that gradient's own largest |ref|.
+    A gradient whose reference is under a thousandth of the largest one's
+    (ddA at S = 1 without h0 is zero analytically) is held at that
+    thousandth instead."""
     tops = [float(r.float().abs().max()) for r in ref]
     floor = 1e-3 * max(max(tops), 1e-30)
-    errs = [float((o.float() - r.float()).abs().max()) for o, r in zip(ours, ref)]
-    return max(e / max(t, floor) for e, t in zip(errs, tops)), max(errs)
+    return [float((o.float() - r.float()).abs().max()) / max(t, floor)
+            for o, r, t in zip(ours, ref, tops)]
+
+
+def grad_err(ours, ref) -> tuple[float, float]:
+    """(largest of `grad_errs`, largest |ours - ref|)."""
+    return (max(grad_errs(ours, ref)),
+            max(float((o.float() - r.float()).abs().max()) for o, r in zip(ours, ref)))
 
 
 def check_scan_backwards(torch, kss, krg, kref) -> dict:
@@ -1172,15 +1194,22 @@ def check_scan_backwards(torch, kss, krg, kref) -> dict:
                 e32, a32 = grad_err(ours, ref)
                 bf = [t.bfloat16() for t in (xdt, B, C)]
                 args_bf = [bf[0], dA, bf[1], bf[2], init]
-                e16, a16 = grad_err(scan_grads(torch, ssd, args_bf, cots), ref)
-                e16_plain, _ = grad_err(scan_grads(torch, ssd_plain, args_bf, cots), ref)
+                ours16 = scan_grads(torch, ssd, args_bf, cots)
+                e16, a16 = grad_err(ours16, ref)
+                each16 = grad_errs(ours16, ref)
+                each16_plain = grad_errs(scan_grads(torch, ssd_plain, args_bf, cots), ref)
                 ok = e32 <= SCAN_BWD_TOL["float32"] and e16 <= SCAN_BWD_TOL["bfloat16"] and same
                 label = (f"b={b} S={s} h={h} p={p} g={g} n={n} h0={'yes' if init is not None else 'no'}"
                          f" d_final={'yes' if d_final is not None else 'no'}")
+                names = ("dxdt", "ddA", "dB", "dC", "dh0")
+                per = ", ".join(f"{nm} {e:.1e} ({ep:.1e})"
+                                for nm, e, ep in zip(names, each16, each16_plain))
                 line = (f"[check] B3 backward {label}, error over each gradient's own largest: "
-                        f"f32 {e32:.3e} (tol 2e-4), bf16 {e16:.3e} "
-                        f"(tol 2e-2; the plain bf16 version's {e16_plain:.3e}), repeat bit-equal "
-                        f"{same}")
+                        f"f32 {e32:.3e} (tol 2e-4), bf16 {e16:.3e} (tol 2e-2; the plain bf16 "
+                        f"version's {max(each16_plain):.3e}; the scalar f32 design before this one "
+                        f"reached 5.6e-03 at worst); "
+                        f"bf16 per gradient, the plain bf16 version's in brackets: {per}; "
+                        f"repeat bit-equal {same}")
                 if s <= 64:
                     e_seq, _ = grad_err(ours, scan_grads(torch, ssd_seq, args, cots))
                     ok = ok and e_seq <= SCAN_BWD_TOL["float32"]
@@ -1242,10 +1271,11 @@ def ssd_bwd_cost(b, s, h, p, g, n, dtype_name) -> tuple[float, float, float]:
     adjoint walk (dS_in), C B^T and dy x^T on the causal triangle, dx, dB
     and dC inside the chunk (triangle) and from the carried state and
     dS_out, and dcs.  The entering states S_in are the forward's; the
-    design's second walk that recomputes them is not counted.  Beside them
-    the design's bytes, which add its f32 scratch (entering states and
-    adjoints written and read, per-head dB and dC partials written and
-    read)."""
+    design's forward walk that recomputes them is not counted.  Beside them
+    the design's bytes: the function's, its scratch (each chunk's entering
+    state and outgoing adjoint as bf16 hi and lo planes, 4 bytes an
+    element, written by the states kernel and read by the chunk kernel),
+    and the states kernel's own reads of xdt, dy, B, C and dA."""
     size = 4 if dtype_name == "float32" else 2
     Q = 32
     nc = -(-s // Q)
@@ -1257,8 +1287,10 @@ def ssd_bwd_cost(b, s, h, p, g, n, dtype_name) -> tuple[float, float, float]:
                  + tri * p + 2 * tri * n        # dx, dB, dC inside the chunk
                  + Q * (p + n) + tri + p * n)   # dcs
     ops = 2 * fma_chunk * b * nc * h
-    scratch = 2 * (2 * 4 * b * h * nc * p * n) + 2 * (2 * 4 * b * s * h * n)
-    return bytes_, ops, bytes_ + scratch
+    n_pad = -(-n // 16) * 16
+    scratch = 2 * (2 * 4 * b * h * nc * p * n_pad)
+    rereads = 2 * b * s * h * p * size + 2 * b * s * g * n * size + 2 * 4 * b * s * h
+    return bytes_, ops, bytes_ + scratch + rereads
 
 
 def time_scan_backwards(torch, kss, krg) -> dict:
@@ -1277,20 +1309,24 @@ def time_scan_backwards(torch, kss, krg) -> dict:
     y, _ = kss.ssd_scan_plain(*ins, chunk=256)
     bytes_, ops, design = ssd_bwd_cost(*shape, "bfloat16")
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / PEAK_OPS["bfloat16"]
+    call = lambda: kss._launch_bwd(xdt, dA, B, C, None, dy, None, False)    # noqa: E731
+    split = kernel_split(torch, call, r"(ssd_bwd_\w+)")
     out["B3 bwd train"] = {
-        "ms": time_ms(torch, lambda: kss._launch_bwd(xdt, dA, B, C, None, dy, None, False), flush,
-                      reps=10),
+        "ms": time_ms(torch, call, flush, reps=10),
         "plain_ms": time_ms(torch, lambda: torch.autograd.grad(y, ins, dy, retain_graph=True),
                             flush, reps=10),
         "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "shape": "b=16 S=512 h=24 p=64 g=1 n=128 bfloat16 (f32 arithmetic)",
+        "shape": "b=16 S=512 h=24 p=64 g=1 n=128 bfloat16 (f32 sums)",
         "note": (f"{bytes_ / 1e6:.1f} MB in and out, {ops / 1e9:.2f} GFLOP "
-                 f"({t_ops * 1e3:.4f} ms at the bf16 rate; the built design does them on "
-                 f"the CUDA cores in f32, {ops / PEAK_OPS['float32'] * 1e3:.4f} ms at their "
-                 f"peak, and recomputes the entering states besides); the design moves "
-                 f"{design / 1e6:.1f} MB with its scratch "
-                 f"({design / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate)")}
+                 f"({t_ops * 1e3:.4f} ms at the bf16 rate; the design takes them on the "
+                 f"tensor cores, its f32 operands as bf16 hi and lo, two or three products "
+                 f"each, and recomputes the entering states besides); the design moves "
+                 f"{design / 1e6:.1f} MB with its scratch and rereads "
+                 f"({design / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate); per launch, "
+                 f"device ms a call with the L2 warm (torch.profiler): "
+                 + (", ".join(f"{k} {v:.4f}" for k, v in split.items()) if split
+                    else "not measured (the profiler saw no device time)"))}
     del y, ins
     a, bb, _ = rglru_inputs(torch, 16, 256, 4096, seed=7)
     h, _ = krg.rglru_scan(a, bb)

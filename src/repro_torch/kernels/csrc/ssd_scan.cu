@@ -67,47 +67,53 @@
 // products would miss the f32 gate (atol 2e-4, rtol 1e-3), and f32 is not
 // on the full-width path.  Limits: P % 16 == 0, N <= 256.
 //
-// Backward (three kernels, one template over T, f32 arithmetic throughout;
-// `ssd_scan_bwd_launch`).  It differentiates the unrounded chunked form, so
-// a bf16 forward's gradients are those of its f32 function.  With cs_t the
-// cumulative sum of dA inside a chunk of kBQ = 32 steps, S_in the state
+// Backward (two kernels, one template over T, f32 sums;
+// `ssd_scan_bwd_launch`).  It differentiates the unrounded chunked form,
+// so a bf16 forward's gradients are those of its f32 function.  With cs_t
+// the cumulative sum of dA inside a chunk of kBQ = 32 steps, S_in the state
 // entering the chunk and dS_out the adjoint of the state leaving it:
-//   dS_in = e^{cs_last} dS_out + sum_t e^{cs_t} dy_t (x) C_t    (dh0 at c = 0)
+//   dS_in = e^{cs_last} dS_out + (dy o e^{cs_t})^T C             (dh0 at c = 0)
+//   S_out = e^{cs_last} S_in + (x o e^{cs_last-cs_t})^T B
 //   dx_j  = sum_{t>=j} e^{cs_t-cs_j} (C_t.B_j) dy_t + e^{cs_last-cs_j} dS_out B_j
 //   dB_j  = sum_{t>=j} e^{cs_t-cs_j} (dy_t.x_j) C_t + e^{cs_last-cs_j} dS_out^T x_j
 //   dC_t  = sum_{j<=t} e^{cs_t-cs_j} (dy_t.x_j) B_j + e^{cs_t} S_in^T dy_t
 // and dcs_t from the pair terms, the carried state and dS_out, summed from
-// the end of the chunk into ddA.
-//   1. `ssd_bwd_states_kernel`, one block per (16-row p-tile, head, batch):
-//      walks the chunks forward and writes each chunk's entering state
-//      S_in, then backward and writes each chunk's dS_out, and dh0.  Each
-//      thread keeps its state columns in registers.  No state is ever
-//      recovered by dividing by a decay (e^{-dA} overflows): the entering
-//      states are recomputed here, so the forward is left as it is.
-//      Scratch: 2 x b*h*ceil(s/32)*P*N f32 (at mamba2-130m's training
-//      shape b=16, s=512: 2 x 201 MB).
-//   2. `ssd_bwd_chunk_kernel`, one block per (chunk, head, batch), all
-//      chunks in parallel: C B^T masked by the decay, then over 16-row
-//      p-tiles of x, dy (stored [p][t]), S_in and dS_out the products
-//      dy x^T, dx (stored in T), and dy S_in and x dS_out, accumulated in
-//      registers four steps of a column a thread; then ddA (one warp: the
-//      pair terms' row and column sums, the carried state's, dS_out's, and
-//      a reverse scan) and the head's dB and dC, written as f32 partials
-//      per head (2 x b*s*h*N f32: 2 x 201 MB at that shape).
-//   3. `ssd_bwd_group_sum_kernel`: dB and dC of a group are the sums of
-//      its heads' partials, in head order, stored in T.
+// the end of the chunk into ddA; dB and dC summed over a group's heads.
+// What bounds it on the H100: bytes.  It must read x, dy, B, C and dA and
+// write dx, dB, dC and ddA: 85.5 MB at mamba2-130m's training shape
+// (b=16, s=512, h=24, p=64, g=1, n=128, bf16), 0.0255 ms at 3.35 TB/s; its
+// 16.4 GFLOP take 0.0166 ms at the bf16 tensor rate.
+//   1. `ssd_bwd_states_kernel`: the pass from chunk to chunk.  Each
+//      chunk's increment is one [16 kMTiles x 32] . [32 x N] tensor-core
+//      product, so a walk is ceil(s/32) steps of a product and an
+//      elementwise decay (16 at that shape), not s rank-1 updates; walk 0
+//      (forward, S_in) and walk 1 (backward, dS_out and dh0) run as
+//      separate blocks.  It stores every S_in and dS_out as bf16 hi and lo
+//      planes: 2 x b*h*ceil(s/32)*p*N x 4 bytes of scratch (2 x 201 MB at
+//      that shape), the only intermediate that goes through device memory.
+//   2. `ssd_bwd_chunk_kernel`: one block per (chunk, group, batch), every
+//      chunk in parallel, looping over the group's heads and their 16-row
+//      p-tiles in order.  Every product is an `mma.sync.m16n8k16` fed by
+//      `ldmatrix`: C B^T once per block; per head and p-tile dy x^T, V = B
+//      dS_out^T and W = C S_in^T (for dx and dcs), Gm^T dy, and the carried
+//      parts of dB and dC, accumulated over all heads in registers; at the
+//      end (sum over heads of M)^T C and (sum M) B.  bf16 inputs are exact
+//      operands; f32 ones (f32 inputs, the states, Gm, sum M and the decay-
+//      weighted x and dy) are split into bf16 hi and lo planes and
+//      multiplied pairwise but lo x lo (about 2^-16 relative).  dcs (the
+//      decay mask, M and the pair terms' row and column sums) is spread
+//      over all eight warps, one warp then takes the 32-step scan.  dB and
+//      dC are summed over the heads on chip, in head order: no per-head
+//      partials and no third kernel.
 // Every sum runs in a fixed order and every output element is written by
-// one thread, with no atomics: two calls give the same bits.  What bounds
-// the function: bytes, its inputs and outputs (85 MB at the training shape,
-// 0.026 ms at 3.35 TB/s), above its ~16 GFLOP at the card's bf16 rate
-// (0.017 ms).  The design as built is far from that: it does its products
-// as scalar f32 on the CUDA cores (0.25 ms at their peak), recomputes the
-// entering states, and moves ~1.3 GB of scratch (0.39 ms at the memory
-// rate).  What holds it back beyond those: the states kernel's 32
-// dependent chunk steps a block, each behind three barriers, and
-// shared-memory loads in the chunk kernel's scalar products; tensor cores
-// (3xTF32 for f32 accuracy) and on-chip reduction of the per-head partials
-// are the next steps.  Limits: P % 16 == 0, N <= 256.
+// one thread, with no atomics: two calls give the same bits.  What holds it
+// back, as measured at that shape (`launch/scan_bwd_cuts.py`; 0.54 ms in
+// all on an H100 at 700 W): the states kernel's stores of the scratch
+// (0.13 of its 0.21 ms, the time its 402.7 MB take at the memory rate),
+// and in the chunk kernel (0.32 ms) short dependent chains of ldmatrix
+// and mma behind one barrier a p-tile, at two blocks (16 warps) an SM,
+// which its 128 registers a thread and 101 KB of shared memory a block
+// allow.  Limits: P % 16 == 0, N <= 256 (N % 16 == 0 for bf16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -700,392 +706,827 @@ cudaError_t launch(void (*kernel)(const T*, const float*, const T*, const T*, co
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 32;             // backward chunk: one warp's lanes
-constexpr int kBwdThreads = 256;
-constexpr int kTS = kBQ + 4;        // shared row stride of the [p][t] x / dy tiles
-constexpr int kStCols = kMaxN / kF32Threads;  // state columns a states-kernel thread owns
-constexpr int kURIters = kMaxN / 32;          // (4-step, column) pieces of U, R a thread owns
+constexpr int kBQS = kBQ + kPad;    // bf16 row stride of [*, kBQ] tiles
+constexpr int kFQ = kBQ + 1;        // f32 row stride of [kBQ, kBQ] tiles
+constexpr int kStWarps = 4;         // states kernel
+constexpr int kStThreads = 32 * kStWarps;
+constexpr int kChWarps = 8;         // chunk kernel
+constexpr int kChThreads = 32 * kChWarps;
+constexpr int kBwdStages = 3;       // copies in flight: two ahead of the one computed on
+// Warps that split a state's 16-column blocks: the states kernel's four,
+// and the chunk kernel's four pairs (one warp a 16-row m-tile).
+constexpr int kColWarps = 4;
 
-__device__ __forceinline__ float ldf(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ldf(const bf16* p, size_t i) { return __bfloat162float(p[i]); }
+// bf16 planes a value of T is held in on the tensor cores: bf16 is exact
+// in one; f32 is split into hi = bf16(v) and lo = bf16(v - hi).
+template <typename T> struct Planes;
+template <> struct Planes<bf16> { static constexpr int n = 1; };
+template <> struct Planes<float> { static constexpr int n = 2; };
+
 __device__ __forceinline__ void stf(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void stf(bf16* p, size_t i, float v) { p[i] = __float2bfloat16_rn(v); }
+// Two neighbours at an even index.
+__device__ __forceinline__ void st2(float* p, size_t i, float a, float b) {
+  p[i] = a;
+  p[i + 1] = b;
+}
+__device__ __forceinline__ void st2(bf16* p, size_t i, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p + i) = pack_bf16(a, b);
+}
 
-// Inclusive cumulative sum of dA over the chunk (zeros past S), by warp 0:
-// cs_s[t], din_s[t] = e^{cs_t}, dout_s[t] = e^{cs_last - cs_t}.
-__device__ __forceinline__ void chunk_decays(const float* dA, size_t base, int H, int len,
-                                             float* cs_s, float* din_s, float* dout_s) {
-  const int lane = threadIdx.x;
-  float cs = lane < len ? dA[base + (size_t)lane * H] : 0.f;
+__device__ __forceinline__ float2 unpack_bf16(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+}
+// (a, b) as a bf16 pair hi and the pair of what hi leaves out, lo.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  const float2 h = unpack_bf16(hi);
+  lo = pack_bf16(a - h.x, b - h.y);
+}
+// Sum of an operand's planes, scaled by (s0, s1) per half and split again.
+template <int NPL>
+__device__ __forceinline__ void rescale_split(const uint32_t (&r)[NPL][4], const float (&s)[4][2],
+                                              uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float2 v = unpack_bf16(r[0][e]);
+    if (NPL == 2) {
+      const float2 w = unpack_bf16(r[NPL - 1][e]);
+      v.x += w.x;
+      v.y += w.y;
+    }
+    split_bf16(v.x * s[e][0], v.y * s[e][1], hi[e], lo[e]);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b over the operands' planes, all pairs but lo x lo.
+template <int NA, int NB>
+__device__ __forceinline__ void mma_planes(float (&d)[4], const uint32_t (&a)[NA][4],
+                                           const uint32_t (&b)[NB][2]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (i + j < 2) mma_bf16(d, a[i], b[j][0], b[j][1]);
+}
+
+// Rows [0, rows) of a tile `cols` wide (a multiple of 8) into shared
+// memory, row stride ds: row r from src + r * stride, zeros for rows
+// r >= len and columns >= valid.  bf16 goes through 16-byte cp.async
+// (valid % 8 == 0) into one plane; f32 through registers, split into the
+// planes dst (hi) and dst + pstride (lo).
+__device__ __forceinline__ void load_tile(bf16* dst, int, int ds, const bf16* src, size_t stride,
+                                          int rows, int len, int cols, int valid, int tid,
+                                          int nthreads) {
+  const int pieces = cols / 8;
+  const int dr = nthreads / pieces, dk = nthreads % pieces * 8;
+  for (int r = tid / pieces, k = tid % pieces * 8; r < rows;) {
+    const bool v = r < len && k < valid;
+    cp_async16(dst + r * ds + k, src + (v ? r * stride + k : 0), v);
+    r += dr;
+    k += dk;
+    if (k >= cols) {
+      k -= cols;
+      ++r;
+    }
+  }
+}
+__device__ __forceinline__ void load_tile(bf16* dst, int pstride, int ds, const float* src,
+                                          size_t stride, int rows, int len, int cols, int valid,
+                                          int tid, int nthreads) {
+  const int pieces = cols / 8;
+  for (int i = tid; i < rows * pieces; i += nthreads) {
+    const int r = i / pieces, k = (i % pieces) * 8;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = k + 2 * e;
+      const float a = r < len && c < valid ? src[r * stride + c] : 0.f;
+      const float b = r < len && c + 1 < valid ? src[r * stride + c + 1] : 0.f;
+      split_bf16(a, b, hi[e], lo[e]);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ds + k) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(dst + pstride + r * ds + k) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// Inclusive cumulative sum of a chunk's dA across a warp's lanes.
+__device__ __forceinline__ float warp_cumsum(float v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int off = 1; off < 32; off *= 2) {
-    const float up = __shfl_up_sync(kFull, cs, off);
-    if (lane >= off) cs += up;
+    const float up = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += up;
   }
-  const float last = __shfl_sync(kFull, cs, kBQ - 1);
-  cs_s[lane] = cs;
-  din_s[lane] = expf(cs);
-  dout_s[lane] = expf(last - cs);
+  return v;
 }
 
-__host__ __device__ constexpr int bwd_states_smem_floats(int N) {
-  return kBQ * N + kBQ * kPT + 3 * kBQ;
+// A warp's [16 x 16] bf16 tile held as m16n8 accumulator pairs (w[j][r]:
+// n8 tile j, row gq + 8 r, columns 2q and 2q + 1) stored as 16-byte
+// pieces: the four lanes of a quad trade words so that lane q holds row
+// gq + 8 (q >> 1), columns 8 (q & 1) .. + 7.  The store is marked
+// streaming (evict first): the states are read once, by the next kernel.
+__device__ __forceinline__ void store_tile16(bf16* dst, size_t row_stride,
+                                             const uint32_t (&w)[2][2]) {
+  const int lane = threadIdx.x & 31, q = lane & 3, gq = lane >> 2;
+  uint32_t v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int t = q ^ k;               // the lane this word goes to
+    const uint32_t send = t == 0 ? w[0][0] : t == 1 ? w[1][0] : t == 2 ? w[0][1] : w[1][1];
+    v[k] = __shfl_xor_sync(kFull, send, k);   // columns 2 (q ^ k) of the target's piece
+  }
+  auto pick = [&](int m) {             // the word of columns 2m: v[m ^ q]
+    const int k = m ^ q;
+    return k == 0 ? v[0] : k == 1 ? v[1] : k == 2 ? v[2] : v[3];
+  };
+  const bf16* p = dst + (size_t)(gq + 8 * (q >> 1)) * row_stride + 8 * (q & 1);
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(pick(0)),
+               "r"(pick(1)), "r"(pick(2)), "r"(pick(3))
+               : "memory");
 }
 
-// 1. Entering states S_in and outgoing adjoints dS_out of every chunk, and
-// dh0.  Thread tid owns state columns n = tid, tid + 128 of all 16 rows,
-// in registers; per step it reads its B (or C) value once and the step's
-// 16 decay-weighted x (or dy) values as four broadcast float4s.
-template <typename T>
-__global__ void __launch_bounds__(kF32Threads)
+// Scratch: per (chunk, batch, head) a [2][P][NP] bf16 block, the hi and
+// lo planes of a [P, NP] f32 state (NP = N rounded up to 16, zeros past
+// N).  Chunk-major, so that the states kernel's blocks, which walk the
+// chunks in step, write one contiguous region at a time.
+__host__ __device__ __forceinline__ size_t state_slot(int c, int b, int h, int batch, int H, int P,
+                                                      int NP) {
+  return (((size_t)c * batch + b) * H + h) * 2 * (size_t)P * NP;
+}
+
+// Row stride of the states kernel's x (or dy) tile, 16 m-tiles columns wide.
+__host__ __device__ constexpr int states_xs(int mtiles) { return 16 * mtiles + kPad; }
+
+template <typename T, int kMTiles>
+__host__ __device__ constexpr size_t bwd_states_stage_bytes(int NP) {
+  return sizeof(bf16) * Planes<T>::n * kBQ * ((NP + kPad) + states_xs(kMTiles)) +
+         sizeof(float) * kBQ;
+}
+
+// 1. The chunk-to-chunk pass.  Block (16 kMTiles-row p-tile, head, batch x
+// walk): walk 0 carries the state forward, S_in[c+1] = e^{cs_last} S_in[c]
+// + (x o e^{cs_last-cs_t})^T B, and stores each chunk's entering state;
+// walk 1 carries the adjoint backward, dS_out[c-1] = e^{cs_last} dS_out[c]
+// + (dy o e^{cs_t})^T C, stores each chunk's outgoing adjoint, and dh0.
+// The increment is a [16 kMTiles x 32] . [32 x NP] product on the tensor
+// cores: warp w keeps the 16-column blocks w, w + 4, ... of the kMTiles
+// m-tiles of the f32 state in its mma accumulators; the decay-weighted x
+// (or dy) is split into hi and lo bf16 planes.  B, C, x, dy and dA of the
+// next two chunks are copied while a chunk computes.  Nothing is divided
+// by a decay.
+template <typename T, int kCB, int kMTiles>
+__global__ void __launch_bounds__(kStThreads)
 ssd_bwd_states_kernel(const T* __restrict__ xdt, const float* __restrict__ dA,
                       const T* __restrict__ Bm, const T* __restrict__ Cm,
                       const float* __restrict__ h0, const T* __restrict__ dy,
-                      const float* __restrict__ d_final, float* __restrict__ states,
-                      float* __restrict__ dstates, float* __restrict__ dh0, int S, int H,
-                      int P, int G, int N) {
-  extern __shared__ __align__(16) float bwd_smem[];
-  float* row_s = bwd_smem;              // [kBQ][N] B (forward walk) or C (backward walk)
-  float* v_s = row_s + kBQ * N;         // [kBQ][kPT] x e^{cs_last-cs_t} or dy e^{cs_t}
-  float* cs_s = v_s + kBQ * kPT;
-  float* din_s = cs_s + kBQ;
-  float* dout_s = din_s + kBQ;
+                      const float* __restrict__ d_final, bf16* __restrict__ states,
+                      bf16* __restrict__ dstates, float* __restrict__ dh0, int S, int H, int P,
+                      int G, int N, int NP) {
+  constexpr int NPL = Planes<T>::n;
+  constexpr int XS = states_xs(kMTiles);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int NS = NP + kPad;
+  const size_t sb = bwd_states_stage_bytes<T, kMTiles>(NP);
+  auto stage_rows = [&](int s) { return reinterpret_cast<bf16*>(smem_raw + s * sb); };
+  auto stage_vec = [&](int s) { return stage_rows(s) + NPL * kBQ * NS; };
+  auto stage_da = [&](int s) { return reinterpret_cast<float*>(stage_vec(s) + NPL * kBQ * XS); };
 
-  const int p0 = blockIdx.x * kPT, h = blockIdx.y, b = blockIdx.z;
+  const int p0 = blockIdx.x * 16 * kMTiles, h = blockIdx.y;
+  const int b = blockIdx.z >> 1;
+  const bool fwd = (blockIdx.z & 1) == 0;
   const int g = h / (H / G);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
   const int nc = (S + kBQ - 1) / kBQ;
-  const size_t state_base = (((size_t)b * H + h) * P + p0) * N;
-  // chunk c's [kPT, N] slice of the scratch [b, h, nc, P, N]
-  auto slot = [&](int c) { return (((size_t)b * H + h) * nc + c) * P * N + (size_t)p0 * N; };
-  float st[kStCols][kPT];
+  const T* rows = fwd ? Bm : Cm;
+  const T* vec = fwd ? xdt : dy;
+  const float* init = fwd ? h0 : d_final;
+  bf16* out = fwd ? states : dstates;
+  const size_t state_base = (((size_t)b * H + h) * P + p0) * N;   // [b,h,P,N] f32 tiles
 
-  for (int walk = 0; walk < 2; ++walk) {
-    const bool fwd = walk == 0;
-    const float* init = fwd ? h0 : d_final;
-    const T* rows = fwd ? Bm : Cm;
-    const T* vec = fwd ? xdt : dy;
-    float* out = fwd ? states : dstates;
-#pragma unroll
-    for (int k = 0; k < kStCols; ++k) {
-      const int n = tid + k * kF32Threads;
-#pragma unroll
-      for (int pp = 0; pp < kPT; ++pp)
-        st[k][pp] = init && n < N ? init[state_base + (size_t)pp * N + n] : 0.f;
+  auto issue = [&](int c, int s) {
+    const int t0 = c * kBQ, len = min(kBQ, S - t0);
+    load_tile(stage_rows(s), kBQ * NS, NS, rows + ((size_t)b * S + t0) * G * N + (size_t)g * N,
+              (size_t)G * N, kBQ, len, NP, N, tid, kStThreads);
+    load_tile(stage_vec(s), kBQ * XS, XS, vec + (((size_t)b * S + t0) * H + h) * P + p0,
+              (size_t)H * P, kBQ, len, 16 * kMTiles, 16 * kMTiles, tid, kStThreads);
+    if (tid < kBQ) {
+      const bool v = tid < len;
+      cp_async4(stage_da(s) + tid, dA + ((size_t)b * S + (v ? t0 + tid : 0)) * H + h, v);
     }
-    for (int k = 0; k < nc; ++k) {
-      const int c = fwd ? k : nc - 1 - k;
-      const int t0 = c * kBQ, len = min(kBQ, S - t0);
-      __syncthreads();   // the last chunk's readers are done with the staging
+    cp_async_commit();
+  };
+
+  float st[kCB][kMTiles][2][4];   // [16-column block][m-tile][n8][frag]
 #pragma unroll
-      for (int q = 0; q < kStCols; ++q) {
-        const int n = tid + q * kF32Threads;
-        if (n < N)
+  for (int i = 0; i < kCB; ++i) {
+    const int n0 = (warp + kColWarps * i) * 16;
 #pragma unroll
-          for (int pp = 0; pp < kPT; ++pp) out[slot(c) + (size_t)pp * N + n] = st[q][pp];
+    for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * m + gq + 8 * (e >> 1), col = n0 + 8 * j + 2 * q + (e & 1);
+          st[i][m][j][e] = init && col < N ? init[state_base + (size_t)row * N + col] : 0.f;
+        }
+  }
+
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+  auto chunk_of = [&](int k) { return fwd ? k : nc - 1 - k; };
+  issue(chunk_of(0), 0);
+  if (nc > 1) issue(chunk_of(1), 1);
+  for (int k = 0; k < nc; ++k) {
+    const int c = chunk_of(k), s = k % kBwdStages;
+    // the state entering chunk c (walk 0) or the adjoint leaving it (walk 1)
+    const size_t slot = state_slot(c, b, h, gridDim.z >> 1, H, P, NP) + (size_t)p0 * NP;
+#pragma unroll
+    for (int i = 0; i < kCB; ++i) {
+      const int n0 = (warp + kColWarps * i) * 16;
+      if (n0 < NP)
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m) {
+          uint32_t hi[2][2], lo[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              split_bf16(st[i][m][j][2 * r], st[i][m][j][2 * r + 1], hi[j][r], lo[j][r]);
+          const size_t off = slot + (size_t)16 * m * NP + n0;
+          store_tile16(out + off, NP, hi);
+          store_tile16(out + off + (size_t)P * NP, NP, lo);
+        }
+    }
+    if (k + 1 < nc)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();   // chunk c is in stage s; every warp is done with stage (k + 2) % 3
+    if (k + 2 < nc) issue(chunk_of(k + 2), (k + 2) % kBwdStages);
+
+    // decays: e^{cs_last - cs_t} weights x (walk 0), e^{cs_t} weights dy (walk 1)
+    const float cs = warp_cumsum(stage_da(s)[lane]);
+    const float last = __shfl_sync(kFull, cs, kBQ - 1);
+    const float wt = expf(fwd ? last - cs : cs);
+    const float decay = expf(last);
+    const bf16* rs = stage_rows(s);
+    const bf16* vs = stage_vec(s);
+#pragma unroll
+    for (int i = 0; i < kCB; ++i)
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[i][m][j][e] *= decay;
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      // A = (vec o wt)^T [p][t]: vec stored [t][p], a transposed load
+      const int tq = 16 * kk + 2 * q;
+      const float w0 = __shfl_sync(kFull, wt, tq), w1 = __shfl_sync(kFull, wt, tq + 1);
+      const float w2 = __shfl_sync(kFull, wt, tq + 8), w3 = __shfl_sync(kFull, wt, tq + 9);
+      const float sc[4][2] = {{w0, w1}, {w0, w1}, {w2, w3}, {w2, w3}};
+      uint32_t ahi[kMTiles][1][4], alo[kMTiles][4];
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m) {
+        uint32_t va[NPL][4];
+#pragma unroll
+        for (int pl = 0; pl < NPL; ++pl)
+          ldsm_x4_trans(va[pl], vs + pl * kBQ * XS + (16 * kk + b_row) * XS + 16 * m + b_col);
+        rescale_split<NPL>(va, sc, ahi[m][0], alo[m]);
       }
-      for (int i = tid; i < kBQ * N; i += kF32Threads) {
-        const int t = i / N, n = i % N;
-        row_s[i] = t < len ? ldf(rows, (((size_t)b * S + t0 + t) * G + g) * N + n) : 0.f;
-      }
-      for (int i = tid; i < kBQ * kPT; i += kF32Threads) {
-        const int t = i / kPT, pp = i % kPT;
-        v_s[i] = t < len ? ldf(vec, (((size_t)b * S + t0 + t) * H + h) * P + p0 + pp) : 0.f;
-      }
-      if (tid < 32) chunk_decays(dA, (size_t)b * S * H + (size_t)t0 * H + h, H, len, cs_s, din_s,
-                                 dout_s);
-      __syncthreads();
-      // forward:  S = e^{cs_last} S + sum_t e^{cs_last - cs_t} x_t (x) B_t
-      // backward: dS = e^{cs_last} dS + sum_t e^{cs_t} dy_t (x) C_t
-      const float* w_s = fwd ? dout_s : din_s;
-      for (int i = tid; i < kBQ * kPT; i += kF32Threads) v_s[i] *= w_s[i / kPT];
-      __syncthreads();
-      const float decay = din_s[kBQ - 1];
 #pragma unroll
-      for (int q = 0; q < kStCols; ++q)
+      for (int i = 0; i < kCB; ++i) {
+        const int n0 = (warp + kColWarps * i) * 16;
+        if (n0 < NP) {
+          // rows (B or C) stored [t][n]: a transposed load gives [n][t] fragments
+          uint32_t rb[NPL][4];
 #pragma unroll
-        for (int pp = 0; pp < kPT; ++pp) st[q][pp] *= decay;
-      for (int t = 0; t < len; ++t) {
-        const float4* vr = reinterpret_cast<const float4*>(v_s + t * kPT);
-        const float4 v0 = vr[0], v1 = vr[1], v2 = vr[2], v3 = vr[3];
-        const float v[kPT] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w,
-                              v2.x, v2.y, v2.z, v2.w, v3.x, v3.y, v3.z, v3.w};
+          for (int pl = 0; pl < NPL; ++pl)
+            ldsm_x4_trans(rb[pl], rs + pl * kBQ * NS + (16 * kk + a_row) * NS + n0 + a_col);
 #pragma unroll
-        for (int q = 0; q < kStCols; ++q) {
-          const int n = tid + q * kF32Threads;
-          if (n < N) {
-            const float r = row_s[t * N + n];
+          for (int j = 0; j < 2; ++j) {
+            uint32_t bf[NPL][2];
 #pragma unroll
-            for (int pp = 0; pp < kPT; ++pp) st[q][pp] = fmaf(v[pp], r, st[q][pp]);
+            for (int pl = 0; pl < NPL; ++pl) {
+              bf[pl][0] = rb[pl][2 * j];
+              bf[pl][1] = rb[pl][2 * j + 1];
+            }
+#pragma unroll
+            for (int m = 0; m < kMTiles; ++m) {
+              mma_planes<1, NPL>(st[i][m][j], ahi[m], bf);
+              mma_bf16(st[i][m][j], alo[m], bf[0][0], bf[0][1]);
+            }
           }
         }
       }
     }
   }
-  if (dh0)
+  if (!fwd && dh0)
 #pragma unroll
-    for (int q = 0; q < kStCols; ++q) {
-      const int n = tid + q * kF32Threads;
-      if (n < N)
+    for (int i = 0; i < kCB; ++i) {
+      const int n0 = (warp + kColWarps * i) * 16;
 #pragma unroll
-        for (int pp = 0; pp < kPT; ++pp) dh0[state_base + (size_t)pp * N + n] = st[q][pp];
+      for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = 16 * m + gq + 8 * (e >> 1), col = n0 + 8 * j + 2 * q + (e & 1);
+            if (col < N) dh0[state_base + (size_t)row * N + col] = st[i][m][j][e];
+          }
     }
 }
 
-// Row stride of the chunk kernel's [*, N] tiles: N rounded up to 4 (zeros
-// in the pad) for float4 reads along n, plus 4, so that 8 rows read at
-// once fall in distinct 4-bank groups.
-__host__ __device__ constexpr int bwd_row_stride(int N) { return (N + 3) / 4 * 4 + 4; }
-
-__host__ __device__ constexpr int bwd_chunk_smem_floats(int N) {
-  return 4 * kBQ * bwd_row_stride(N)   // B, C, U = dy S_in, R = x dS_out
-       + 2 * kPT * bwd_row_stride(N)   // S_in and dS_out tiles
-       + 3 * kBQ * (kBQ + 1)           // masked C B^T, dy x^T, masked dy x^T
-       + 2 * kPT * kTS                 // x and dy tiles, [p][t]
-       + 3 * kBQ                       // cs, e^{cs_t}, e^{cs_last - cs_t}
-       + kBwdThreads / 32;             // the <dS_out, S_in> reduction
+// Shared memory of one chunk-kernel block, in order: B and C of the chunk
+// [NPL][kBQ][NS]; two stages of {x, dy [NPL][kBQ][kXS], S_in and dS_out
+// planes [2][kPT][NS], each warp's dA [kChWarps][kBQ] f32}; Gm^T (then
+// sum M) hi/lo [2][kBQ][kBQS]; C B^T, dy x^T and sum M [kBQ][kFQ] f32; the
+// per-head partial sums.
+template <typename T>
+__host__ __device__ constexpr size_t bwd_chunk_stage_bytes(int NP) {
+  return sizeof(bf16) * (2 * Planes<T>::n * kBQ * kXS + 4 * kPT * (NP + kPad)) +
+         sizeof(float) * kChWarps * kBQ;
+}
+template <typename T>
+__host__ __device__ constexpr size_t bwd_chunk_smem_bytes(int NP) {
+  return sizeof(bf16) * 2 * Planes<T>::n * kBQ * (NP + kPad) +
+         kBwdStages * bwd_chunk_stage_bytes<T>(NP) +
+         sizeof(bf16) * 2 * kBQ * kBQS + sizeof(float) * 3 * kBQ * kFQ +
+         sizeof(float) * (kBQ + kChWarps * kBQ + 2 * kBQ + 2 * kBQ + kChWarps);
 }
 
-// 2. Per (chunk, head, batch): dx, ddA, and the head's dB and dC partials.
-// U and R accumulate over the p-tiles in registers, four steps of one
-// column a piece, fed by float4 reads of the [p][t] tiles.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+// 2. Per (chunk, group, batch), over the group's heads in order and each
+// head's 16-row p-tiles: dx, ddA, and dB and dC summed over the heads.
+// With Gm = e^{cs_t-cs_j} C_t.B_j and M = e^{cs_t-cs_j} dy_t.x_j (j <= t):
+//   dx_j   = (Gm^T dy)_j + e^{cs_last-cs_j} V_j,      V = B dS_out^T
+//   dB     = (sum_h M)^T C + sum_h (e^{cs_last-cs_j} x) dS_out
+//   dC     = (sum_h M) B + sum_h (e^{cs_t} dy) S_in
+//   dcs_k  = sum_j Gm_kj dyx_kj - sum_t Gm_tk dyx_tk + e^{cs_k} dy_k.W_k
+//            - e^{cs_last-cs_k} x_k.V_k,              W = C S_in^T
+// and at the chunk's last step sum_j e^{cs_last-cs_j} x_j.V_j +
+// e^{cs_last} <dS_out, S_in>; ddA is the sum of dcs from the end.  Every
+// product is an mma.  Per p-tile warps 0-3 add to the [32 x NP] dB
+// accumulators and warps 4-7 to dC's, in registers (warp w: m-tile w & 1,
+// 16-column blocks (w >> 1 & 1) + 2 k); warps 0-3 also each take an
+// [16 x 8] tile of V with the matching tile of Gm^T dy (so dx) and of x.V,
+// warps 4-7 a tile of W with dy.W and a pair of dy x^T tiles.  At a head's
+// end all warps take the [32 x 32] decay mask, M, its head sum and the
+// pair terms' row and column sums, and one warp the 32-step scan into ddA.
+template <typename T, int kCB>
+__global__ void __launch_bounds__(kChThreads, 2)
 ssd_bwd_chunk_kernel(const T* __restrict__ xdt, const float* __restrict__ dA,
                      const T* __restrict__ Bm, const T* __restrict__ Cm,
-                     const T* __restrict__ dy, const float* __restrict__ states,
-                     const float* __restrict__ dstates, T* __restrict__ dxdt,
-                     float* __restrict__ ddA, float* __restrict__ dBp, float* __restrict__ dCp,
-                     int S, int H, int P, int G, int N) {
-  extern __shared__ __align__(16) float bwd_smem[];
-  constexpr int QP = kBQ + 1;
-  const int NS = bwd_row_stride(N);
-  const int NR = NS - 4;                // N rounded up to 4
-  const int N4 = NR / 4;
-  float* b_s = bwd_smem;                // [kBQ][NS]
-  float* c_s = b_s + kBQ * NS;          // [kBQ][NS]
-  float* u_s = c_s + kBQ * NS;          // [kBQ][NS] U[t][n] = sum_p dy_t[p] S_in[p][n]
-  float* r_s = u_s + kBQ * NS;          // [kBQ][NS] R[j][n] = sum_p x_j[p] dS_out[p][n]
-  float* si_s = r_s + kBQ * NS;         // [kPT][NS] p-tile of S_in
-  float* so_s = si_s + kPT * NS;        // [kPT][NS] p-tile of dS_out
-  float* gm_s = so_s + kPT * NS;        // [kBQ][QP] e^{cs_t-cs_j} C_t.B_j, j <= t
-  float* dyx_s = gm_s + kBQ * QP;       // [kBQ][QP] dy_t.x_j
-  float* m_s = dyx_s + kBQ * QP;        // [kBQ][QP] e^{cs_t-cs_j} dy_t.x_j, j <= t
-  float* xt_s = m_s + kBQ * QP;         // [kPT][kTS] p-tile of x, [p][t]
-  float* dyt_s = xt_s + kPT * kTS;      // [kPT][kTS] p-tile of dy, [p][t]
-  float* cs_s = dyt_s + kPT * kTS;
-  float* din_s = cs_s + kBQ;
-  float* dout_s = din_s + kBQ;
-  float* red_s = dout_s + kBQ;          // [warps]
+                     const T* __restrict__ dy, const bf16* __restrict__ states,
+                     const bf16* __restrict__ dstates, T* __restrict__ dxdt,
+                     float* __restrict__ ddA, T* __restrict__ dB, T* __restrict__ dC, int S,
+                     int H, int P, int G, int N, int NP) {
+  constexpr int NPL = Planes<T>::n;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int NS = NP + kPad;
+  bf16* b_s = reinterpret_cast<bf16*>(smem_raw);          // [NPL][kBQ][NS]
+  bf16* c_s = b_s + NPL * kBQ * NS;                       // [NPL][kBQ][NS]
+  unsigned char* stages = reinterpret_cast<unsigned char*>(c_s + NPL * kBQ * NS);
+  const size_t sb = bwd_chunk_stage_bytes<T>(NP);
+  bf16* gmt_s = reinterpret_cast<bf16*>(stages + kBwdStages * sb);  // [2][kBQ][kBQS]
+  float* cb_s = reinterpret_cast<float*>(gmt_s + 2 * kBQ * kBQS);  // [kBQ][kFQ] C B^T
+  float* dyx_s = cb_s + kBQ * kFQ;                        // [kBQ][kFQ] dy x^T
+  float* summ_s = dyx_s + kBQ * kFQ;                      // [kBQ][kFQ] sum over heads of M
+  float* rowp_s = summ_s + kBQ * kFQ;                     // [kBQ] pair terms' row sums
+  float* colp_s = rowp_s + kBQ;                           // [kChWarps][kBQ] their column sums
+  float* bvp_s = colp_s + kChWarps * kBQ;                 // [2][kBQ] x.V by column half
+  float* cup_s = bvp_s + 2 * kBQ;                         // [2][kBQ] dy.W by column half
+  float* dotp_s = cup_s + 2 * kBQ;                        // [kChWarps] <dS_out, S_in>
+  auto stage_x = [&](int s) { return reinterpret_cast<bf16*>(stages + s * sb); };
+  auto stage_y = [&](int s) { return stage_x(s) + NPL * kBQ * kXS; };
+  auto stage_si = [&](int s) { return stage_y(s) + NPL * kBQ * kXS; };   // [2][kPT][NS]
+  auto stage_so = [&](int s) { return stage_si(s) + 2 * kPT * NS; };     // [2][kPT][NS]
+  auto stage_da = [&](int s) { return reinterpret_cast<float*>(stage_so(s) + 2 * kPT * NS); };
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / G);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.x, gi = blockIdx.y, b = blockIdx.z;
   const int nc = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
   const int t0 = c * kBQ, len = min(kBQ, S - t0);
-  const size_t slot = (((size_t)b * H + h) * nc + c) * P * N;
+  const int hpg = H / G, npt = P / kPT, iters = hpg * npt;
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
 
-  for (int i = tid; i < kBQ * NR; i += kBwdThreads) {
-    const int t = i / NR, n = i % NR;
-    const bool v = t < len && n < N;
-    const size_t off = (((size_t)b * S + t0 + t) * G + g) * N + n;
-    b_s[t * NS + n] = v ? ldf(Bm, off) : 0.f;
-    c_s[t * NS + n] = v ? ldf(Cm, off) : 0.f;
+  // Iteration i: head gi * hpg + i / npt, p-tile i % npt.
+  auto issue = [&](int i, int s) {
+    const int h = gi * hpg + i / npt, pt = i % npt, p0 = pt * kPT;
+    const size_t xoff = (((size_t)b * S + t0) * H + h) * P + p0;
+    load_tile(stage_x(s), kBQ * kXS, kXS, xdt + xoff, (size_t)H * P, kBQ, len, kPT, kPT, tid,
+              kChThreads);
+    load_tile(stage_y(s), kBQ * kXS, kXS, dy + xoff, (size_t)H * P, kBQ, len, kPT, kPT, tid,
+              kChThreads);
+    const size_t slot = state_slot(c, b, h, gridDim.z, H, P, NP) + (size_t)p0 * NP;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      load_tile(stage_si(s) + pl * kPT * NS, 0, NS, states + slot + (size_t)pl * P * NP, NP, kPT,
+                kPT, NP, NP, tid, kChThreads);
+      load_tile(stage_so(s) + pl * kPT * NS, 0, NS, dstates + slot + (size_t)pl * P * NP, NP, kPT,
+                kPT, NP, NP, tid, kChThreads);
+    }
+    if (pt == 0) {   // each lane copies the dA it will read itself
+      const bool v = lane < len;
+      cp_async4(stage_da(s) + warp * kBQ + lane,
+                dA + ((size_t)b * S + (v ? t0 + lane : 0)) * H + h, v);
+    }
+    cp_async_commit();
+  };
+
+  const size_t bc_off = ((size_t)b * S + t0) * G * N + (size_t)gi * N;
+  load_tile(b_s, kBQ * NS, NS, Bm + bc_off, (size_t)G * N, kBQ, len, NP, N, tid, kChThreads);
+  load_tile(c_s, kBQ * NS, NS, Cm + bc_off, (size_t)G * N, kBQ, len, NP, N, tid, kChThreads);
+  issue(0, 0);
+  if (iters > 1) {
+    issue(1, 1);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
   }
-  for (int i = tid; i < kBQ * kBQ; i += kBwdThreads) dyx_s[(i / kBQ) * QP + i % kBQ] = 0.f;
-  if (warp == 0) chunk_decays(dA, (size_t)b * S * H + (size_t)t0 * H + h, H, len, cs_s, din_s,
-                              dout_s);
   __syncthreads();
-
-  for (int i = tid; i < kBQ * kBQ; i += kBwdThreads) {
-    const int t = i / kBQ, j = i % kBQ;
-    float acc = 0.f;
-    if (j <= t) {
-      const float4* cr = reinterpret_cast<const float4*>(c_s + t * NS);
-      const float4* br = reinterpret_cast<const float4*>(b_s + j * NS);
-      for (int k = 0; k < N4; ++k) {
-        const float4 c4 = cr[k], b4 = br[k];
-        acc = fmaf(c4.x, b4.x, fmaf(c4.y, b4.y, fmaf(c4.z, b4.z, fmaf(c4.w, b4.w, acc))));
+  // C B^T [t][j] over NP: warps 0-3, one [16 x 16] tile each
+  if (warp < 4) {
+    const int m = warp >> 1, nb = warp & 1;
+    float acc[2][4] = {};
+    for (int kk = 0; kk < NP / 16; ++kk) {
+      uint32_t ca[NPL][4], bb[NPL][4];
+#pragma unroll
+      for (int pl = 0; pl < NPL; ++pl) {
+        ldsm_x4(ca[pl], c_s + pl * kBQ * NS + (16 * m + a_row) * NS + 16 * kk + a_col);
+        ldsm_x4(bb[pl], b_s + pl * kBQ * NS + (16 * nb + b_row) * NS + 16 * kk + b_col);
       }
-      acc *= expf(cs_s[t] - cs_s[j]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bf[NPL][2];
+#pragma unroll
+        for (int pl = 0; pl < NPL; ++pl) {
+          bf[pl][0] = bb[pl][2 * j];
+          bf[pl][1] = bb[pl][2 * j + 1];
+        }
+        mma_planes<NPL, NPL>(acc[j], ca, bf);
+      }
     }
-    gm_s[t * QP + j] = acc;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cb_s[(16 * m + gq + 8 * (e >> 1)) * kFQ + 16 * nb + 8 * j + 2 * q + (e & 1)] = acc[j][e];
   }
+  // this thread's four elements of the [kBQ, kBQ] tiles: row pt_t, columns pt_j..+3
+  const int pt_t = tid >> 3, pt_j = (tid & 7) * 4;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) summ_s[pt_t * kFQ + pt_j + e] = 0.f;
+  __syncthreads();   // C B^T is complete
 
-  float ua[kURIters][4], ra[kURIters][4];
+  // This warp's share of dB (wmat 0) or dC (wmat 1): m-tile wm, 16-column
+  // blocks wc + 2 k; acc[block][n8][frag]
+  const int wmat = warp >> 2, wm = warp & 1, wc = (warp >> 1) & 1, r_m = 16 * wm + gq;
+  float acc[2 * kCB][2][4] = {};
+  float cs = 0.f, din = 0.f, dout = 0.f, dlast = 0.f;     // lane t's decays of the head
+  float red[2] = {}, dot = 0.f;                           // per-head partials
+  float dyxa[2][4] = {};                                  // warps 4-7: dy x^T tiles
+  const int um = (warp & 3) >> 1, un = warp & 1;          // this warp's [16 x 8] unit
+  // the dot's stride over a p-tile's [kPT][NP] planes, in 8-column pieces
+  const int drow = kChThreads / (NP / 8), dcol = kChThreads % (NP / 8) * 8;
+
+  for (int i = 0; i < iters; ++i) {
+    const int s = i % kBwdStages, pt = i % npt, h = gi * hpg + i / npt, p0 = pt * kPT;
+    if (i + 1 < iters)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    if (pt == 0) {
+      // head start: decays from this warp's own copy of dA, and Gm^T split
+      cs = warp_cumsum(stage_da(s)[warp * kBQ + lane]);
+      const float last = __shfl_sync(kFull, cs, kBQ - 1);
+      din = expf(cs);
+      dout = expf(last - cs);
+      dlast = expf(last);
+      const float cs_t = __shfl_sync(kFull, cs, pt_t);
 #pragma unroll
-  for (int it = 0; it < kURIters; ++it)
+      for (int e = 0; e < 4; ++e) {
+        const int j = pt_j + e;
+        const float cs_j = __shfl_sync(kFull, cs, j);
+        const float gm = j <= pt_t ? cb_s[pt_t * kFQ + j] * expf(cs_t - cs_j) : 0.f;
+        const bf16 hi = __float2bfloat16_rn(gm);
+        gmt_s[j * kBQS + pt_t] = hi;
+        gmt_s[kBQ * kBQS + j * kBQS + pt_t] = __float2bfloat16_rn(gm - __bfloat162float(hi));
+      }
+      red[0] = red[1] = dot = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ua[it][e] = ra[it][e] = 0.f;
-  float dot = 0.f;                      // this thread's share of <dS_out, S_in>
-  for (int p0 = 0; p0 < P; p0 += kPT) {
-    __syncthreads();                    // gm_s is written; the last tile is read
-    for (int i = tid; i < kBQ * kPT; i += kBwdThreads) {
-      const int t = i / kPT, pp = i % kPT;
-      const bool v = t < len;
-      const size_t off = (((size_t)b * S + t0 + t) * H + h) * P + p0 + pp;
-      xt_s[pp * kTS + t] = v ? ldf(xdt, off) : 0.f;
-      dyt_s[pp * kTS + t] = v ? ldf(dy, off) : 0.f;
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dyxa[m][e] = 0.f;
     }
-    for (int i = tid; i < kPT * NR; i += kBwdThreads) {
-      const int pp = i / NR, n = i % NR;
-      const size_t off = slot + (size_t)(p0 + pp) * N + n;
-      si_s[pp * NS + n] = n < N ? states[off] : 0.f;
-      so_s[pp * NS + n] = n < N ? dstates[off] : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < kBQ * kBQ; i += kBwdThreads) {
-      const int t = i / kBQ, j = i % kBQ;
-      float acc = dyx_s[t * QP + j];
+    __syncthreads();   // stage s and Gm^T are in place; stage (i + 2) % 3 is free
+    if (i + 2 < iters) issue(i + 2, (i + 2) % kBwdStages);
+    const bf16* xs = stage_x(s);
+    const bf16* ys = stage_y(s);
+    const bf16* si = stage_si(s);
+    const bf16* so = stage_so(s);
+
+    // dB += (dout o x) dS_out (warps 0-3), dC += (din o dy) S_in (warps
+    // 4-7) over this p-tile, for this warp's m-tile and 16-column blocks
+    {
+      const float w0 = __shfl_sync(kFull, wmat ? din : dout, r_m);
+      const float w1 = __shfl_sync(kFull, wmat ? din : dout, r_m + 8);
+      const float sc[4][2] = {{w0, w0}, {w1, w1}, {w0, w0}, {w1, w1}};
+      const bf16* va = wmat ? ys : xs;
+      const bf16* sv = wmat ? si : so;
+      uint32_t a[NPL][4], ah[1][4], al[4];
 #pragma unroll
-      for (int pp = 0; pp < kPT; ++pp) acc = fmaf(dyt_s[pp * kTS + t], xt_s[pp * kTS + j], acc);
-      dyx_s[t * QP + j] = acc;
-    }
+      for (int pl = 0; pl < NPL; ++pl)
+        ldsm_x4(a[pl], va + pl * kBQ * kXS + (16 * wm + a_row) * kXS + a_col);
+      rescale_split<NPL>(a, sc, ah[0], al);
 #pragma unroll
-    for (int it = 0; it < kURIters; ++it) {
-      const int i = tid + it * kBwdThreads;
-      if (i < (kBQ / 4) * N) {
-        const int tq = i / N, n = i % N;
-#pragma unroll 4
-        for (int pp = 0; pp < kPT; ++pp) {
-          const float4 d4 = *reinterpret_cast<const float4*>(dyt_s + pp * kTS + 4 * tq);
-          const float4 x4 = *reinterpret_cast<const float4*>(xt_s + pp * kTS + 4 * tq);
-          const float si = si_s[pp * NS + n], so = so_s[pp * NS + n];
-          ua[it][0] = fmaf(d4.x, si, ua[it][0]);
-          ua[it][1] = fmaf(d4.y, si, ua[it][1]);
-          ua[it][2] = fmaf(d4.z, si, ua[it][2]);
-          ua[it][3] = fmaf(d4.w, si, ua[it][3]);
-          ra[it][0] = fmaf(x4.x, so, ra[it][0]);
-          ra[it][1] = fmaf(x4.y, so, ra[it][1]);
-          ra[it][2] = fmaf(x4.z, so, ra[it][2]);
-          ra[it][3] = fmaf(x4.w, so, ra[it][3]);
+      for (int k = 0; k < 2 * kCB; ++k) {
+        const int n0 = (wc + 2 * k) * 16;
+        if (n0 < NP) {
+          uint32_t stb[2][4];   // dS_out or S_in [p][n]: [plane][frag]
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl)
+            ldsm_x4_trans(stb[pl], sv + pl * kPT * NS + a_row * NS + n0 + a_col);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t bf[2][2] = {{stb[0][2 * j], stb[0][2 * j + 1]},
+                                       {stb[1][2 * j], stb[1][2 * j + 1]}};
+            mma_planes<1, 2>(acc[k][j], ah, bf);
+            mma_bf16(acc[k][j], al, bf[0][0], bf[0][1]);
+          }
         }
       }
     }
-    for (int i = tid; i < kPT * N; i += kBwdThreads) {
-      const int pp = i / N, n = i % N;
-      dot = fmaf(so_s[pp * NS + n], si_s[pp * NS + n], dot);
-    }
-    for (int i = tid; i < kBQ * kPT; i += kBwdThreads) {
-      const int j = i / kPT, pp = i % kPT;
-      if (j >= len) continue;
-      float acc = 0.f;
-      for (int t = j; t < kBQ; ++t) acc = fmaf(gm_s[t * QP + j], dyt_s[pp * kTS + t], acc);
-      const float4* so = reinterpret_cast<const float4*>(so_s + pp * NS);
-      const float4* br = reinterpret_cast<const float4*>(b_s + j * NS);
-      float carried = 0.f;
-      for (int k = 0; k < N4; ++k) {
-        const float4 s4 = so[k], b4 = br[k];
-        carried = fmaf(s4.x, b4.x, fmaf(s4.y, b4.y, fmaf(s4.z, b4.z, fmaf(s4.w, b4.w, carried))));
-      }
-      stf(dxdt, (((size_t)b * S + t0 + j) * H + h) * P + p0 + pp, fmaf(dout_s[j], carried, acc));
-    }
-  }
-#pragma unroll
-  for (int it = 0; it < kURIters; ++it) {
-    const int i = tid + it * kBwdThreads;
-    if (i < (kBQ / 4) * N) {
-      const int tq = i / N, n = i % N;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        u_s[(4 * tq + e) * NS + n] = ua[it][e];
-        r_s[(4 * tq + e) * NS + n] = ra[it][e];
-      }
-    }
-  }
-  // <dS_out, S_in>: warps' sums, then warp 0 over them in order
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
-  if (lane == 0) red_s[warp] = dot;
-  __syncthreads();                      // dy x^T, U, R and the sums are complete
 
-  for (int i = tid; i < kBQ * kBQ; i += kBwdThreads) {
-    const int t = i / kBQ, j = i % kBQ;
-    m_s[t * QP + j] = j <= t ? expf(cs_s[t] - cs_s[j]) * dyx_s[t * QP + j] : 0.f;
+    // This warp's [16 x 8] unit: rows um (16 steps), columns un (8 of the p-tile).
+    {
+      const bf16* rows = warp < 4 ? b_s : c_s;      // V = B dS_out^T, W = C S_in^T
+      const bf16* st = warp < 4 ? so : si;
+      float uacc[2][4] = {};
+      const bf16* ra0 = rows + (16 * um + a_row) * NS + a_col;
+      const bf16* sb0 = st + (8 * un + (lane & 7)) * NS + ((lane >> 3) & 1) * 8;
+      for (int kk = 0; kk < NP / 16; kk += 2) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {     // two k-steps into two accumulators
+          if (u == 0 || kk + 1 < NP / 16) {
+            uint32_t ra[NPL][4], sbf[2][2];
+#pragma unroll
+            for (int pl = 0; pl < NPL; ++pl)
+              ldsm_x4(ra[pl], ra0 + pl * kBQ * NS + 16 * (kk + u));
+#pragma unroll
+            for (int pl = 0; pl < 2; ++pl) ldsm_x2(sbf[pl], sb0 + pl * kPT * NS + 16 * (kk + u));
+            mma_planes<NPL, 2>(uacc[u], ra, sbf);
+          }
+        }
+      }
+      const int r0 = 16 * um + gq, col = 8 * un + 2 * q;
+      const bf16* vin = warp < 4 ? xs : ys;        // x.V or dy.W
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = uacc[0][e] + uacc[1][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(vin + (r0 + 8 * r) * kXS + col));
+        if (NPL == 2) {
+          const float2 w = unpack_bf16(
+              *reinterpret_cast<const uint32_t*>(vin + kBQ * kXS + (r0 + 8 * r) * kXS + col));
+          xv.x += w.x;
+          xv.y += w.y;
+        }
+        red[r] = fmaf(xv.x, v[2 * r], fmaf(xv.y, v[2 * r + 1], red[r]));
+      }
+      if (warp < 4) {
+        // dx = Gm^T dy + dout o V for this unit
+        float dx[4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kBQ / 16; ++kk) {
+          uint32_t ga[2][4], yb[NPL][2];
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl)
+            ldsm_x4(ga[pl], gmt_s + pl * kBQ * kBQS + (16 * um + a_row) * kBQS + 16 * kk + a_col);
+#pragma unroll
+          for (int pl = 0; pl < NPL; ++pl)
+            ldsm_x2_trans(yb[pl], ys + pl * kBQ * kXS + (16 * kk + (lane & 15)) * kXS + 8 * un);
+          mma_planes<2, NPL>(dx, ga, yb);
+        }
+        const float o0 = __shfl_sync(kFull, dout, r0), o1 = __shfl_sync(kFull, dout, r0 + 8);
+        const size_t base = (((size_t)b * S + t0 + r0) * H + h) * P + p0 + col;
+        if (r0 < len) st2(dxdt, base, fmaf(o0, v[0], dx[0]), fmaf(o0, v[1], dx[1]));
+        if (r0 + 8 < len)
+          st2(dxdt, base + (size_t)8 * H * P, fmaf(o1, v[2], dx[2]), fmaf(o1, v[3], dx[3]));
+      } else {
+        // dy x^T [t][j] += over this p-tile: m-tile um, key columns 16 un .. +16
+        uint32_t ya[NPL][4], xb[NPL][4];
+#pragma unroll
+        for (int pl = 0; pl < NPL; ++pl) {
+          ldsm_x4(ya[pl], ys + pl * kBQ * kXS + (16 * um + a_row) * kXS + a_col);
+          ldsm_x4(xb[pl], xs + pl * kBQ * kXS + (16 * un + b_row) * kXS + b_col);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t bf[NPL][2];
+#pragma unroll
+          for (int pl = 0; pl < NPL; ++pl) {
+            bf[pl][0] = xb[pl][2 * j];
+            bf[pl][1] = xb[pl][2 * j + 1];
+          }
+          mma_planes<NPL, NPL>(dyxa[j], ya, bf);
+        }
+      }
+    }
+
+    // <dS_out, S_in> over the p-tile, eight elements (16 bytes a plane) a step
+    for (int e = tid, row = tid / (NP / 8), col = tid % (NP / 8) * 8; e < kPT * NP / 8;
+         e += kChThreads) {
+      const int o = row * NS + col;
+      const uint4 a = *reinterpret_cast<const uint4*>(si + o);
+      const uint4 a2 = *reinterpret_cast<const uint4*>(si + kPT * NS + o);
+      const uint4 d = *reinterpret_cast<const uint4*>(so + o);
+      const uint4 d2 = *reinterpret_cast<const uint4*>(so + kPT * NS + o);
+      const uint32_t av[4] = {a.x, a.y, a.z, a.w}, a2v[4] = {a2.x, a2.y, a2.z, a2.w};
+      const uint32_t dv[4] = {d.x, d.y, d.z, d.w}, d2v[4] = {d2.x, d2.y, d2.z, d2.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 sa = unpack_bf16(av[k]), sl = unpack_bf16(a2v[k]);
+        const float2 da = unpack_bf16(dv[k]), dl = unpack_bf16(d2v[k]);
+        dot = fmaf(sa.x + sl.x, da.x + dl.x, fmaf(sa.y + sl.y, da.y + dl.y, dot));
+      }
+      row += drow;
+      col += dcol;
+      if (col >= NP) {
+        col -= NP;
+        ++row;
+      }
+    }
+
+    if (pt == npt - 1) {
+      // head end: publish the partials
+      if (warp >= 4)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dyx_s[(16 * um + gq + 8 * (e >> 1)) * kFQ + 16 * un + 8 * j + 2 * q + (e & 1)] =
+                dyxa[j][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        red[r] += __shfl_xor_sync(kFull, red[r], 1);
+        red[r] += __shfl_xor_sync(kFull, red[r], 2);
+      }
+      if (q == 0) {
+        float* dst = (warp < 4 ? bvp_s : cup_s) + un * kBQ;
+        dst[16 * um + gq] = red[0];
+        dst[16 * um + gq + 8] = red[1];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
+      if (lane == 0) dotp_s[warp] = dot;
+      __syncthreads();
+      // decay mask, M into its head sum, the pair terms' row and column sums
+      {
+        const float cs_t = __shfl_sync(kFull, cs, pt_t);
+        float row = 0.f, colv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = pt_j + e;
+          const float cs_j = __shfl_sync(kFull, cs, j);
+          const float l = j <= pt_t ? expf(cs_t - cs_j) : 0.f;
+          const float d = dyx_s[pt_t * kFQ + j];
+          summ_s[pt_t * kFQ + j] = fmaf(l, d, summ_s[pt_t * kFQ + j]);
+          const float pr = l * cb_s[pt_t * kFQ + j] * d;
+          row += pr;
+          colv[e] = pr;
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off *= 2) row += __shfl_xor_sync(kFull, row, off);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          colv[e] += __shfl_xor_sync(kFull, colv[e], 8);
+          colv[e] += __shfl_xor_sync(kFull, colv[e], 16);
+        }
+        if ((tid & 7) == 0) rowp_s[pt_t] = row;
+        if (lane < 8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) colp_s[warp * kBQ + pt_j + e] = colv[e];
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const int k = lane;
+        float col = 0.f, dsum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kChWarps; ++w) {
+          col += colp_s[w * kBQ + k];
+          dsum += dotp_s[w];
+        }
+        const float v = dout * (bvp_s[k] + bvp_s[kBQ + k]);
+        float vsum = v;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) vsum += __shfl_xor_sync(kFull, vsum, off);
+        float dcs = rowp_s[k] - col + din * (cup_s[k] + cup_s[kBQ + k]) - v;
+        if (k == kBQ - 1) dcs += vsum + dlast * dsum;
+#pragma unroll
+        for (int off = 1; off < 32; off *= 2) {
+          const float down = __shfl_down_sync(kFull, dcs, off);
+          if (k + off < 32) dcs += down;
+        }
+        if (k < len) ddA[((size_t)b * S + t0 + k) * H + h] = dcs;
+      }
+    }
   }
-  if (warp == 0) {
-    // dcs_k: pair terms w_tj = gm_tj dyx_tj add at t and subtract at j;
-    // the carried state adds e^{cs_k} C_k.U_k; dS_out's input term
-    // v_j = e^{cs_last-cs_j} B_j.R_j subtracts at j and adds at the end,
-    // as does e^{cs_last} <dS_out, S_in>.
-    const int k = lane;
-    float row = 0.f, col = 0.f, cu = 0.f, bv = 0.f;
-    for (int j = 0; j < kBQ; ++j) {
-      row = fmaf(gm_s[k * QP + j], dyx_s[k * QP + j], row);
-      col = fmaf(gm_s[j * QP + k], dyx_s[j * QP + k], col);
-    }
-    for (int n = 0; n < N; ++n) {
-      cu = fmaf(c_s[k * NS + n], u_s[k * NS + n], cu);
-      bv = fmaf(b_s[k * NS + n], r_s[k * NS + n], bv);
-    }
-    const float v = dout_s[k] * bv;
-    float vsum = v;
+
+  // dB += (sum M)^T C, dC += (sum M) B, with sum M split into hi and lo
+  __syncthreads();
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) vsum += __shfl_xor_sync(kFull, vsum, off);
-    float total = 0.f;
-    for (int w = 0; w < kBwdThreads / 32; ++w) total += red_s[w];
-    float dcs = row - col + din_s[k] * cu - v;
-    if (k == kBQ - 1) dcs += vsum + din_s[kBQ - 1] * total;
-    // ddA_k = sum_{t >= k} dcs_t
-#pragma unroll
-    for (int off = 1; off < 32; off *= 2) {
-      const float down = __shfl_down_sync(kFull, dcs, off);
-      if (k + off < 32) dcs += down;
-    }
-    if (k < len) ddA[((size_t)b * S + t0 + k) * H + h] = dcs;
+  for (int e = 0; e < 4; ++e) {
+    const float v = summ_s[pt_t * kFQ + pt_j + e];
+    const bf16 hi = __float2bfloat16_rn(v);
+    gmt_s[pt_t * kBQS + pt_j + e] = hi;
+    gmt_s[kBQ * kBQS + pt_t * kBQS + pt_j + e] = __float2bfloat16_rn(v - __bfloat162float(hi));
   }
   __syncthreads();
-
-  // dB_j = sum_{t>=j} m_tj C_t + e^{cs_last-cs_j} R_j;  dC_t = sum_{j<=t} m_tj B_j + e^{cs_t} U_t
-  for (int i = tid; i < kBQ * N; i += kBwdThreads) {
-    const int r = i / N, n = i % N;
-    if (r >= len) continue;
-    float db = dout_s[r] * r_s[r * NS + n], dc = din_s[r] * u_s[r * NS + n];
-    for (int t = r; t < kBQ; ++t) db = fmaf(m_s[t * QP + r], c_s[t * NS + n], db);
-    for (int j = 0; j <= r; ++j) dc = fmaf(m_s[r * QP + j], b_s[j * NS + n], dc);
-    const size_t off = (((size_t)b * S + t0 + r) * H + h) * N + n;
-    dBp[off] = db;
-    dCp[off] = dc;
+  const bf16* rows = wmat ? b_s : c_s;        // dB = (sum M)^T C, dC = (sum M) B
+#pragma unroll
+  for (int kk = 0; kk < kBQ / 16; ++kk) {
+    uint32_t ma[2][4];
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      const bf16* mp = gmt_s + pl * kBQ * kBQS;
+      if (wmat)      // sum M [t][j] as it lies
+        ldsm_x4(ma[pl], mp + (16 * wm + a_row) * kBQS + 16 * kk + a_col);
+      else           // (sum M)^T [j][t]: stored [t][j], a transposed load
+        ldsm_x4_trans(ma[pl], mp + (16 * kk + b_row) * kBQS + 16 * wm + b_col);
+    }
+#pragma unroll
+    for (int k = 0; k < 2 * kCB; ++k) {
+      const int n0 = (wc + 2 * k) * 16;
+      if (n0 < NP) {
+        uint32_t rb[NPL][4];
+#pragma unroll
+        for (int pl = 0; pl < NPL; ++pl)
+          ldsm_x4_trans(rb[pl], rows + pl * kBQ * NS + (16 * kk + a_row) * NS + n0 + a_col);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t bf[NPL][2];
+#pragma unroll
+          for (int pl = 0; pl < NPL; ++pl) {
+            bf[pl][0] = rb[pl][2 * j];
+            bf[pl][1] = rb[pl][2 * j + 1];
+          }
+          mma_planes<2, NPL>(acc[k][j], ma, bf);
+        }
+      }
+    }
+  }
+  T* dst = wmat ? dC : dB;
+#pragma unroll
+  for (int k = 0; k < 2 * kCB; ++k) {
+    const int n0 = (wc + 2 * k) * 16;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r_m + 8 * (e >> 1), col = n0 + 8 * j + 2 * q + (e & 1);
+        if (row < len && col < N) stf(dst, bc_off + (size_t)row * G * N + col, acc[k][j][e]);
+      }
   }
 }
 
-// 3. dB and dC per group: the group's heads' partials summed in head order.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-ssd_bwd_group_sum_kernel(const float* __restrict__ dBp, const float* __restrict__ dCp,
-                         T* __restrict__ dB, T* __restrict__ dC, size_t total, int H, int G,
-                         int N) {
-  const size_t i = (size_t)blockIdx.x * kBwdThreads + threadIdx.x;
-  if (i >= total) return;
-  const int n = i % N;
-  const size_t rest = i / N;
-  const int g = rest % G;
-  const size_t bs = rest / G;
-  const int hpg = H / G;
-  float sb = 0.f, sc = 0.f;
-  for (int k = 0; k < hpg; ++k) {
-    const size_t off = (bs * H + (size_t)g * hpg + k) * N + n;
-    sb += dBp[off];
-    sc += dCp[off];
-  }
-  stf(dB, i, sb);
-  stf(dC, i, sc);
-}
-
-template <typename T>
+template <typename T, int kCB, int kMTiles>
 cudaError_t launch_bwd(const void* xdt, const void* dA, const void* B, const void* C,
                        const void* h0, const void* dy, const void* d_final, void* dxdt, void* ddA,
-                       void* dB, void* dC, void* dh0, void* states, void* dstates, void* dBp,
-                       void* dCp, int batch, int S, int H, int P, int G, int N, cudaStream_t st) {
+                       void* dB, void* dC, void* dh0, void* states, void* dstates, int batch,
+                       int S, int H, int P, int G, int N, int NP, cudaStream_t st) {
   const int nc = (S + kBQ - 1) / kBQ;
-  const size_t smem1 = sizeof(float) * bwd_states_smem_floats(N);
-  const size_t smem2 = sizeof(float) * bwd_chunk_smem_floats(N);
-  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_states_kernel<T>,
+  const size_t smem1 = kBwdStages * bwd_states_stage_bytes<T, kMTiles>(NP);
+  const size_t smem2 = bwd_chunk_smem_bytes<T>(NP);
+  // All of the unified L1/shared storage as shared memory: the states
+  // kernel's occupancy is set by it (six or more blocks an SM at N = 128).
+  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_states_kernel<T, kCB, kMTiles>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
+    err = cudaFuncSetAttribute(ssd_bwd_states_kernel<T, kCB, kMTiles>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T, kCB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T, kCB>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
@@ -1094,24 +1535,36 @@ cudaError_t launch_bwd(const void* xdt, const void* dA, const void* B, const voi
   const T* bm = static_cast<const T*>(B);
   const T* cm = static_cast<const T*>(C);
   const T* g = static_cast<const T*>(dy);
-  ssd_bwd_states_kernel<T><<<dim3(P / kPT, H, batch), kF32Threads, smem1, st>>>(
-      x, da, bm, cm, static_cast<const float*>(h0), g, static_cast<const float*>(d_final),
-      static_cast<float*>(states), static_cast<float*>(dstates), static_cast<float*>(dh0), S, H,
-      P, G, N);
+  bf16* s_in = static_cast<bf16*>(states);
+  bf16* s_out = static_cast<bf16*>(dstates);
+  const dim3 grid1(P / (16 * kMTiles), H, 2 * batch);
+  ssd_bwd_states_kernel<T, kCB, kMTiles><<<grid1, kStThreads, smem1, st>>>(
+      x, da, bm, cm, static_cast<const float*>(h0), g, static_cast<const float*>(d_final), s_in,
+      s_out, static_cast<float*>(dh0), S, H, P, G, N, NP);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_chunk_kernel<T><<<dim3(nc, H, batch), kBwdThreads, smem2, st>>>(
-      x, da, bm, cm, g, static_cast<const float*>(states), static_cast<const float*>(dstates),
-      static_cast<T*>(dxdt), static_cast<float*>(ddA), static_cast<float*>(dBp),
-      static_cast<float*>(dCp), S, H, P, G, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t total = (size_t)batch * S * G * N;
-  ssd_bwd_group_sum_kernel<T><<<(unsigned)((total + kBwdThreads - 1) / kBwdThreads), kBwdThreads,
-                                0, st>>>(static_cast<const float*>(dBp),
-                                         static_cast<const float*>(dCp), static_cast<T*>(dB),
-                                         static_cast<T*>(dC), total, H, G, N);
+  ssd_bwd_chunk_kernel<T, kCB><<<dim3(nc, G, batch), kChThreads, smem2, st>>>(
+      x, da, bm, cm, g, s_in, s_out, static_cast<T*>(dxdt), static_cast<float*>(ddA),
+      static_cast<T*>(dB), static_cast<T*>(dC), S, H, P, G, N, NP);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_n(const void* xdt, const void* dA, const void* B, const void* C,
+                         const void* h0, const void* dy, const void* d_final, void* dxdt,
+                         void* ddA, void* dB, void* dC, void* dh0, void* states, void* dstates,
+                         int batch, int S, int H, int P, int G, int N, cudaStream_t st) {
+  const int NP = (N + 15) / 16 * 16;
+  // kCB: 16-column blocks a states-kernel warp owns (of NP / 16 split
+  // kColWarps ways; the chunk kernel's warps own twice as many); the
+  // states kernel's m-tiles a block: four (p = 64, 64 state registers a
+  // thread) where P and N allow
+#define SSD_BWD_LAUNCH(CB, MT)                                                                  \
+  launch_bwd<T, CB, MT>(xdt, dA, B, C, h0, dy, d_final, dxdt, ddA, dB, dC, dh0, states, dstates, \
+                        batch, S, H, P, G, N, NP, st)
+  if (NP <= 128) return P % 64 ? SSD_BWD_LAUNCH(2, 1) : SSD_BWD_LAUNCH(2, 4);
+  return SSD_BWD_LAUNCH(4, 1);
+#undef SSD_BWD_LAUNCH
 }
 
 }  // namespace
@@ -1142,23 +1595,25 @@ extern "C" int ssd_scan_launch(const void* xdt, const void* dA, const void* B,
 // The backward.  Inputs as the forward's, plus dy [b,s,h,p] in T and
 // d_final [b,h,p,n] f32 (null: zero); h0 may be null.  Outputs: dxdt
 // [b,s,h,p] and dB, dC [b,s,g,n] in T, ddA [b,s,h] f32, dh0 [b,h,p,n] f32
-// (null: not wanted).  Scratch from the caller, f32: states and dstates
-// [b,h,ceil(s/32),p,n], dBp and dCp [b,s,h,n].  P % 16 == 0, N <= 256, H a
-// multiple of G.  Returns a cudaError_t.
+// (null: not wanted).  Scratch from the caller: states and dstates, each
+// [b,h,ceil(s/32),2,p,np] bf16 with np = n rounded up to 16.  P % 16 ==
+// 0, N <= 256 (and a multiple of 16 for bfloat16), H a multiple of G;
+// bfloat16 pointers 16-byte aligned.  Returns a cudaError_t.
 extern "C" int ssd_scan_bwd_launch(const void* xdt, const void* dA, const void* B,
                                    const void* C, const void* h0, const void* dy,
                                    const void* d_final, void* dxdt, void* ddA, void* dB,
-                                   void* dC, void* dh0, void* states, void* dstates, void* dBp,
-                                   void* dCp, int dtype, int batch, int S, int H, int P, int G,
-                                   int N, void* stream) {
+                                   void* dC, void* dh0, void* states, void* dstates, int dtype,
+                                   int batch, int S, int H, int P, int G, int N, void* stream) {
   if (batch < 1 || S < 1 || P % kPT || N < 1 || N > kMaxN || G < 1 || H % G)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(xdt, dA, B, C, h0, dy, d_final, dxdt, ddA, dB, dC, dh0, states,
-                             dstates, dBp, dCp, batch, S, H, P, G, N, st);
-  if (dtype == 1)
-    return launch_bwd<bf16>(xdt, dA, B, C, h0, dy, d_final, dxdt, ddA, dB, dC, dh0, states,
-                            dstates, dBp, dCp, batch, S, H, P, G, N, st);
+    return launch_bwd_n<float>(xdt, dA, B, C, h0, dy, d_final, dxdt, ddA, dB, dC, dh0, states,
+                               dstates, batch, S, H, P, G, N, st);
+  if (dtype == 1) {
+    if (N % 16) return cudaErrorInvalidValue;
+    return launch_bwd_n<bf16>(xdt, dA, B, C, h0, dy, d_final, dxdt, ddA, dB, dC, dh0, states,
+                              dstates, batch, S, H, P, G, N, st);
+  }
   return cudaErrorInvalidValue;
 }

@@ -20,12 +20,18 @@ and the reference round: the decay-masked scores, the state that enters a
 chunk, and the decay-weighted inputs of the state update.  f32 runs them
 in scalar f32 (32-step chunks): TF32 products would miss the f32 gate.
 
-The backward (`ssd_scan_bwd_launch`, three kernels over one template, f32
-arithmetic reading bf16 or f32) recomputes each 32-step chunk's entering
-state and the adjoint of its leaving state in a first pass, then computes
-every chunk's dx, ddA and per-head dB, dC in parallel, and sums the heads
-of a group in a fixed order; `_SSDScan` wraps forward and backward as one
-`torch.autograd.Function`.
+The backward (`ssd_scan_bwd_launch`, two kernels over one template, f32
+sums) differentiates the unrounded chunked form in 32-step chunks.  A
+states kernel carries each chunk's entering state forward and the adjoint
+of its leaving state back, adding each chunk's increment as one
+tensor-core product; a chunk kernel then takes every chunk in parallel,
+looping over the heads of a group, and computes dx, ddA and the group's dB
+and dC (summed over its heads on chip, in head order) with every product
+on the tensor cores.  f32 operands (f32 inputs, the states, the decay-
+weighted ones) go in as bf16 hi and lo planes.  What bounds it is bytes
+(85.5 MB in and out at mamba2-130m's training shape, 0.0255 ms on an
+H100); the note in the source gives what still holds it back.  `_SSDScan`
+wraps forward and backward as one `torch.autograd.Function`.
 
 `ssd_scan` is the one entry point.  For CPU tensors it runs
 `ssd_scan_plain`, the port of `ssd_chunked` in plain PyTorch, which
@@ -177,6 +183,8 @@ class _SSDScan(torch.autograd.Function):
         if dy is None and d_final is None:
             return None, None, None, None, None
         dy = torch.zeros_like(xdt) if dy is None else dy.to(xdt.dtype).contiguous()
+        if dy.data_ptr() % 16:      # a view off the kernel's 16-byte pieces
+            dy = dy.clone()
         if d_final is not None:
             d_final = d_final.contiguous()
         want_h0 = h0 is not None and ctx.needs_input_grad[4]
@@ -233,15 +241,16 @@ def _launch(xdt, dA, B, C, h0):
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("ssd_scan").ssd_scan_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_bwd(xdt, dA, B, C, h0, dy, d_final, want_h0):
     """The backward kernels: (dxdt, ddA, dB, dC, dh0 or None).  Scratch
-    (each chunk's entering state and outgoing adjoint, and the per-head
-    partials of dB and dC) is allocated here and freed on return."""
+    (each chunk's entering state and outgoing adjoint, as bf16 hi and lo
+    planes of the f32 state, n padded to a multiple of 16) is allocated
+    here and freed on return."""
     global bwd_launches
     b, s, h, p = xdt.shape
     g, n = B.shape[2], B.shape[3]
@@ -253,24 +262,30 @@ def _launch_bwd(xdt, dA, B, C, h0, dy, d_final, want_h0):
     if p % P_TILE or n > MAX_STATE:
         raise ValueError(f"the SSD backward takes head dims that are multiples of "
                          f"{P_TILE} and states up to {MAX_STATE}; got p={p}, n={n}")
+    if xdt.dtype == torch.bfloat16 and n % N_STEP:
+        raise ValueError(f"the bf16 SSD backward takes state sizes that are multiples "
+                         f"of {N_STEP}; got n={n}")
     for name, t in (("xdt", xdt), ("dA", dA), ("B", B), ("C", C), ("h0", h0), ("dy", dy),
                     ("d_final", d_final)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if (xdt.dtype == torch.bfloat16 and name in ("xdt", "B", "C", "dy")
+                and t.data_ptr() % 16):
+            raise ValueError(f"the bf16 SSD backward reads xdt, B, C and dy in wide "
+                             f"pieces: {name} must start on a 16-byte boundary")
     fn = _bwd_kernel()
     f32, dev = torch.float32, xdt.device
-    nc = -(-s // BWD_CHUNK)
+    nc, n_pad = -(-s // BWD_CHUNK), -(-n // N_STEP) * N_STEP
     dxdt, dB, dC = torch.empty_like(xdt), torch.empty_like(B), torch.empty_like(C)
     ddA = torch.empty((b, s, h), dtype=f32, device=dev)
     dh0 = torch.empty((b, h, p, n), dtype=f32, device=dev) if want_h0 else None
-    states = torch.empty((2, b, h, nc, p, n), dtype=f32, device=dev)
-    partials = torch.empty((2, b, s, h, n), dtype=f32, device=dev)
+    states = torch.empty((2, b, h, nc, 2, p, n_pad), dtype=torch.bfloat16, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = fn(xdt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(), ptr(h0),
              dy.data_ptr(), ptr(d_final), dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
              dC.data_ptr(), ptr(dh0), states[0].data_ptr(), states[1].data_ptr(),
-             partials[0].data_ptr(), partials[1].data_ptr(), _DTYPE_CODES[xdt.dtype],
-             b, s, h, p, g, n, torch.cuda.current_stream(dev).cuda_stream)
+             _DTYPE_CODES[xdt.dtype], b, s, h, p, g, n,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan backward kernel launch failed: cudaError_t {err}")
     bwd_launches += 1

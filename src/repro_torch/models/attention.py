@@ -23,10 +23,38 @@ def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
     return s
 
 
+def _f32_out(*operands) -> bool:
+    """Whether a score product may multiply its operands in their own
+    16-bit type into f32 (`torch.bmm(..., out_dtype=torch.float32)`), as the
+    reference's `preferred_element_type=jnp.float32` does: CUDA tensors of
+    one 16-bit type, with no gradient taken.  Otherwise the operands are
+    cast to f32 first.  Under grad because `aten::bmm.dtype` has no
+    derivative (a `torch.autograd.Function` around it would be needed); on
+    the CPU because the overload has no CPU kernel.  bf16 x bf16 is exact in
+    f32, so both give the same products, summed in another order."""
+    a = operands[0]
+    return (a.is_cuda and a.dtype in (torch.bfloat16, torch.float16)
+            and all(t.dtype == a.dtype for t in operands)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in operands)))
+
+
+def _gqa_scores(q, k):
+    """q [B,Cq,Hkv,G,D] . k [B,Sk,Hkv,D] -> f32 scores [B,Hkv,G,Cq,Sk]."""
+    if _f32_out(q, k):
+        # 16-bit operands, f32 output: on the card, no gradient taken
+        B, Cq, Hkv, G, D = q.shape
+        Sk = k.shape[1]
+        s = torch.bmm(q.permute(0, 2, 3, 1, 4).reshape(B * Hkv, G * Cq, D),
+                      k.permute(0, 2, 3, 1).reshape(B * Hkv, D, Sk), out_dtype=torch.float32)
+        return s.reshape(B, Hkv, G, Cq, Sk)
+    # under grad or on the CPU: f32 operands (see `_f32_out`)
+    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+
+
 def _attend_block(q, k, v, mask, scale, softcap):
     """One (q-chunk × full-K) attention block.
     q [B,Cq,Hkv,G,D]; k,v [B,Sk,Hkv,D]; mask [Cq,Sk]."""
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    s = _gqa_scores(q, k) * scale
     s = _softcap(s, softcap)
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
@@ -127,8 +155,19 @@ def mla_full_attention(
     k_pos = torch.arange(Sk, device=q_nope.device)
 
     def block(q_n, q_r, q_pos):
-        s = torch.einsum("bqhd,bkhd->bhqk", q_n.float(), k_nope.float())
-        s = s + torch.einsum("bqhr,bkr->bhqk", q_r.float(), k_rope.float())
+        if _f32_out(q_n, k_nope, q_r, k_rope):
+            # 16-bit operands, f32 output: on the card, no gradient taken
+            Cq = q_n.shape[1]
+            s = torch.bmm(q_n.permute(0, 2, 1, 3).reshape(B * H, Cq, Dn),
+                          k_nope.permute(0, 2, 3, 1).reshape(B * H, Dn, Sk),
+                          out_dtype=torch.float32).reshape(B, H, Cq, Sk)
+            s = s + torch.bmm(q_r.permute(0, 2, 1, 3).reshape(B, H * Cq, Dr),
+                              k_rope.transpose(1, 2), out_dtype=torch.float32
+                              ).reshape(B, H, Cq, Sk)
+        else:
+            # under grad or on the CPU: f32 operands (see `_f32_out`)
+            s = torch.einsum("bqhd,bkhd->bhqk", q_n.float(), k_nope.float())
+            s = s + torch.einsum("bqhr,bkr->bhqk", q_r.float(), k_rope.float())
         s = s * scale
         m = torch.ones((q_n.shape[1], Sk), dtype=torch.bool, device=q_n.device)
         if causal:
@@ -163,8 +202,14 @@ def mla_decode_absorbed(
     Returns [B, H, Dv]."""
     c_kv = c_kv.to(q_latent.dtype)
     k_rope = k_rope.to(q_rope.dtype)
-    s = torch.einsum("bhc,bkc->bhk", q_latent.float(), c_kv.float())
-    s = s + torch.einsum("bhr,bkr->bhk", q_rope.float(), k_rope.float())
+    if _f32_out(q_latent, c_kv, q_rope, k_rope):
+        # 16-bit operands, f32 output: on the card, no gradient taken
+        s = torch.bmm(q_latent, c_kv.transpose(1, 2), out_dtype=torch.float32)
+        s = s + torch.bmm(q_rope, k_rope.transpose(1, 2), out_dtype=torch.float32)
+    else:
+        # under grad or on the CPU: f32 operands (see `_f32_out`)
+        s = torch.einsum("bhc,bkc->bhk", q_latent.float(), c_kv.float())
+        s = s + torch.einsum("bhr,bkr->bhk", q_rope.float(), k_rope.float())
     s = s * scale
     valid = torch.arange(c_kv.shape[1], device=c_kv.device) <= pos
     s = torch.where(valid, s, NEG_INF)

@@ -789,3 +789,53 @@ def test_scan_families_train_on_the_card_as_on_the_cpu(cuda, arch, mod):
 
 def _to(tree, dev):
     return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev)) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Attention scores: 16-bit operands into f32 where no gradient is taken
+# ---------------------------------------------------------------------------
+
+
+def test_attention_scores_take_bf16_operands_without_grad(cuda):
+    """Without a gradient, bf16 scores on the card are `torch.bmm(...,
+    out_dtype=torch.float32)` of the bf16 operands: within f32 summation
+    error of the f32 cast (each within 128 x 2^-24 x sum_d |q_d k_d| of the
+    exact sum, D = 128), for the GQA block; MLA's full attention and
+    absorbed decode agree with their cast versions to bf16 rounding.
+    Under grad the cast stays (`aten::bmm.dtype` has no derivative) and a
+    backward through full attention runs."""
+    from repro_torch.models import attention as att
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v = rnd(2, 64, 4, 2, 128), rnd(2, 96, 4, 128), rnd(2, 96, 4, 128)
+    with torch.no_grad():
+        assert att._f32_out(q, k)
+        fast = att._gqa_scores(q, k)
+    assert not att._f32_out(q.requires_grad_(), k) and not att._f32_out(q.cpu(), k.cpu())
+    cast = torch.einsum("bqhgd,bkhd->bhgqk", q.detach().float(), k.float())
+    bound = torch.einsum("bqhgd,bkhd->bhgqk", q.detach().double().abs(), k.double().abs())
+    assert fast.dtype == torch.float32
+    assert ((fast.double() - cast.double()).abs() <= 2 * 128 * 2.0**-24 * bound).all()
+
+    B, S, H, Dn, Dr = 2, 48, 4, 64, 32
+    qn, qr, kn, kr, val = rnd(B, S, H, Dn), rnd(B, S, H, Dr), rnd(B, S, H, Dn), rnd(B, S, Dr), \
+        rnd(B, S, H, Dn)
+    with torch.no_grad():
+        fast = att.mla_full_attention(qn, qr, kn, kr, val)
+    cast = att.mla_full_attention(qn.requires_grad_(), qr, kn, kr, val).detach()
+    assert float((fast.float() - cast.float()).abs().max()) <= 2e-2 * float(cast.abs().max())
+    ql, cache, w_uv = rnd(B, H, 256), rnd(B, S, 256), rnd(H, 256, 64)
+    pos = torch.tensor(S - 1, device="cuda")
+    with torch.no_grad():
+        fast = att.mla_decode_absorbed(ql, qr[:, 0], cache, kr, w_uv, pos, 0.1)
+    cast = att.mla_decode_absorbed(ql.requires_grad_(), qr[:, 0], cache, kr, w_uv, pos,
+                                   0.1).detach()
+    assert float((fast.float() - cast.float()).abs().max()) <= 2e-2 * float(cast.abs().max())
+
+    qg = q.detach().reshape(2, 64, 8, 128).requires_grad_()
+    out = att.full_attention(qg, k, v)
+    (out.float() ** 2).sum().backward()
+    assert qg.grad is not None and bool(torch.isfinite(qg.grad).all())

@@ -4,7 +4,8 @@ port's sequential oracles (`kernels/ref.py`) and its public kernel names
 
 The CUDA kernels cannot run here, so their algorithms are emulated in
 PyTorch below, step for step as the sources order them
-(`ssd_bwd_emulated`: csrc/ssd_scan.cu's three backward kernels;
+(`ssd_bwd_emulated`: csrc/ssd_scan.cu's two backward kernels, with
+or without their bf16 hi/lo rounding of the tensor cores' operands;
 `rglru_bwd_emulated`: csrc/rglru_scan.cu's reverse segmented scan with
 `plan`'s split), and held against autograd of the plain versions and of
 the sequential oracles: within 1e-10 in float64 (the plain versions and the
@@ -90,19 +91,51 @@ def heads(t, h):
 # ---------------------------------------------------------------------------
 
 
-def ssd_bwd_emulated(xdt, dA, B, C, h0, dy, d_final, want_h0, Q=kss.BWD_CHUNK):
+def planes(t, split):
+    """t as the kernel holds it on the tensor cores, (hi, lo): hi =
+    bf16(t), lo = bf16(t - hi), in t's dtype, when `split`; (t, 0)
+    otherwise (the algorithm without the rounding)."""
+    if not split:
+        return t, torch.zeros_like(t)
+    hi = t.to(torch.bfloat16).to(t.dtype)
+    return hi, (t - hi).to(torch.bfloat16).to(t.dtype)
+
+
+def rounded(t, split):
+    """hi + lo of `planes`: the value a split operand carries."""
+    hi, lo = planes(t, split)
+    return hi + lo
+
+
+def prod(eq, a, b, split):
+    """einsum(eq, a, b) as an mma over the operands' planes: every pair of
+    planes but lo x lo (exact when not `split`)."""
+    ah, al = planes(a, split)
+    bh, bl = planes(b, split)
+    return torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+
+
+def ssd_bwd_emulated(xdt, dA, B, C, h0, dy, d_final, want_h0, Q=kss.BWD_CHUNK, split=False):
     """csrc/ssd_scan.cu's backward in PyTorch, in the inputs' precision (at
-    least f32): chunks of Q steps, zero-padded past S (dA = 0); pass 1
-    walks the chunks forward for each entering state S_in, then backward
-    for each outgoing adjoint dS_out and dh0; per chunk and head, the
-    decay-masked C B^T (Gm) and dy x^T, U = dy S_in, R = x dS_out, then dx,
-    the head's dB and dC, and dcs (pair terms' row sums less column sums,
-    the carried state's e^{cs_t} C_t.U_t, dS_out's input terms v_j moved
-    from j to the chunk's end, e^{cs_last} <dS_out, S_in> there), summed
-    from the end into ddA; dB and dC summed over the heads of a group.
-    Returns (dxdt, ddA, dB, dC, dh0 or None) as `kss._launch_bwd` does."""
+    least f32): chunks of Q steps, zero-padded past S (dA = 0).  The states
+    kernel's chunk increments, (x o e^{cs_last-cs_t})^T B and (dy o
+    e^{cs_t})^T C, and the passes from chunk to chunk that carry each
+    entering state S_in forward and each outgoing adjoint dS_out back to
+    dh0.  Then per chunk, the chunk kernel's products: C B^T per group and
+    per head dy x^T, the decay-masked Gm and M, V = B dS_out^T and W = C
+    S_in^T, dx = Gm^T dy + e^{cs_last-cs_j} V, and dcs (pair terms' row
+    sums less column sums, e^{cs_t} dy.W, less e^{cs_last-cs_j} x.V moved
+    to the chunk's end, e^{cs_last} <dS_out, S_in> there), summed from the
+    end into ddA; dB = (sum_h M)^T C + sum_h (e^{cs_last-cs_j} x) dS_out and
+    dC = (sum_h M) B + sum_h (e^{cs_t} dy) S_in, the heads of a group summed
+    in head order.  `split` takes every product's operands as the kernel
+    does (`planes`: f32 inputs, decay-weighted operands, states, Gm and sum
+    M in bf16 hi and lo); without it the arithmetic is exact in the inputs'
+    precision.  Returns (dxdt, ddA, dB, dC, dh0 or None) as
+    `kss._launch_bwd` does."""
     b, s, h, p = xdt.shape
     g, n = B.shape[2], B.shape[3]
+    rep = h // g
     w = torch.promote_types(xdt.dtype, torch.float32)
     nc = -(-s // Q)
     pad = nc * Q - s
@@ -112,52 +145,67 @@ def ssd_bwd_emulated(xdt, dA, B, C, h0, dy, d_final, want_h0, Q=kss.BWD_CHUNK):
         t = torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], dim=1)
         return t.reshape((b, nc, Q) + t.shape[2:])
 
-    x, g_y, a = chunks(xdt), chunks(dy), chunks(dA)                  # [b,nc,Q,h(,p)]
-    Bh, Ch = chunks(heads(B, h)), chunks(heads(C, h))               # [b,nc,Q,h,n]
+    # inputs as loaded: f32 ones in two planes
+    x, g_y = rounded(chunks(xdt), split), rounded(chunks(dy), split)   # [b,nc,Q,h,p]
+    Bg, Cg = rounded(chunks(B), split), rounded(chunks(C), split)     # [b,nc,Q,g,n]
+    Bh, Ch = Bg.repeat_interleave(rep, dim=3), Cg.repeat_interleave(rep, dim=3)
+    a = chunks(dA)
     cs = torch.cumsum(a, dim=2)
     din, dout = torch.exp(cs), torch.exp(cs[:, :, -1:] - cs)        # [b,nc,Q,h]
     last = din[:, :, -1]                                            # [b,nc,h]
 
+    # the states kernel: increments on the tensor cores, the pass elementwise
+    inc = prod("bcqhp,bcqhn->bchpn", dout[..., None] * x, Bh, split)
+    dinc = prod("bcqhp,bcqhn->bchpn", din[..., None] * g_y, Ch, split)
     st = torch.zeros((b, h, p, n), dtype=w) if h0 is None else h0.to(w)
     s_in = []
     for c in range(nc):
         s_in.append(st)
-        st = (last[:, c, :, None, None] * st
-              + torch.einsum("bqhp,bqhn->bhpn", dout[:, c, ..., None] * x[:, c], Bh[:, c]))
+        st = last[:, c, :, None, None] * st + inc[:, c]
     ds = torch.zeros((b, h, p, n), dtype=w) if d_final is None else d_final.to(w)
     s_out = [None] * nc
     for c in reversed(range(nc)):
         s_out[c] = ds
-        ds = (last[:, c, :, None, None] * ds
-              + torch.einsum("bqhp,bqhn->bhpn", din[:, c, ..., None] * g_y[:, c], Ch[:, c]))
+        ds = last[:, c, :, None, None] * ds + dinc[:, c]
     s_in, s_out = torch.stack(s_in, 1), torch.stack(s_out, 1)      # [b,nc,h,p,n]
 
+    # the chunk kernel
     ct = cs.permute(0, 1, 3, 2)                                     # [b,nc,h,Q]
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
     L = torch.where(causal, torch.exp(ct[..., :, None] - ct[..., None, :]), 0.0)
-    gm = L * torch.einsum("bcthn,bcjhn->bchtj", Ch, Bh)
-    dyx = torch.einsum("bcthp,bcjhp->bchtj", g_y, x)
+    cb = prod("bctgn,bcjgn->bcgtj", Cg, Bg, split)                  # [b,nc,g,Q,Q]
+    gm = L * cb.repeat_interleave(rep, dim=2)
+    dyx = prod("bcthp,bcjhp->bchtj", g_y, x, split)
     m = L * dyx
-    U = torch.einsum("bcthp,bchpn->bcthn", g_y, s_in)
-    R = torch.einsum("bcjhp,bchpn->bcjhn", x, s_out)
-    dx = (torch.einsum("bchtj,bcthp->bcjhp", gm, g_y)
-          + dout[..., None] * torch.einsum("bchpn,bcjhn->bcjhp", s_out, Bh))
-    dBh = torch.einsum("bchtj,bcthn->bcjhn", m, Ch) + dout[..., None] * R
-    dCh = torch.einsum("bchtj,bcjhn->bcthn", m, Bh) + din[..., None] * U
+    V = prod("bcjhn,bchpn->bcjhp", Bh, s_out, split)
+    W = prod("bcthn,bchpn->bcthp", Ch, s_in, split)
+    dx = prod("bchtj,bcthp->bcjhp", gm, g_y, split) + dout[..., None] * V
     pair = gm * dyx
     dcs = (pair.sum(-1) - pair.sum(-2)).permute(0, 1, 3, 2)         # [b,nc,Q,h]
-    v = dout * (Bh * R).sum(-1)
-    dcs = dcs + din * (Ch * U).sum(-1) - v
-    dcs[:, :, -1] += v.sum(2) + last * (s_out * s_in).sum((-1, -2))
+    v = dout * (x * V).sum(-1)
+    dcs = dcs + din * (g_y * W).sum(-1) - v
+    dot = (rounded(s_out, split) * rounded(s_in, split)).sum((-1, -2))
+    dcs[:, :, -1] += v.sum(2) + last * dot
     ddA = torch.flip(torch.cumsum(torch.flip(dcs, [2]), 2), [2])
+
+    def head_sum(t):        # [b,nc,Q,h,n] -> [b,nc,Q,g,n], heads in order
+        t = t.reshape(t.shape[:3] + (g, rep, n))
+        out = t[..., 0, :]
+        for k in range(1, rep):
+            out = out + t[..., k, :]
+        return out
+
+    summ = m.reshape((b, nc, g, rep, Q, Q))
+    summ = sum((summ[:, :, :, k] for k in range(1, rep)), summ[:, :, :, 0])
+    dBg = (prod("bcgtj,bctgn->bcjgn", summ, Cg, split)
+           + head_sum(prod("bcjhp,bchpn->bcjhn", dout[..., None] * x, s_out, split)))
+    dCg = (prod("bcgtj,bcjgn->bctgn", summ, Bg, split)
+           + head_sum(prod("bcthp,bchpn->bcthn", din[..., None] * g_y, s_in, split)))
 
     def cut(t):
         return t.reshape((b, nc * Q) + t.shape[3:])[:, :s]
 
-    rep = h // g
-    dB = cut(dBh).reshape(b, s, g, rep, n).sum(3)
-    dC = cut(dCh).reshape(b, s, g, rep, n).sum(3)
-    return (cut(dx).to(xdt.dtype), cut(ddA), dB.to(B.dtype), dC.to(C.dtype),
+    return (cut(dx).to(xdt.dtype), cut(ddA), cut(dBg).to(B.dtype), cut(dCg).to(C.dtype),
             ds if want_h0 else None)
 
 
@@ -329,6 +377,34 @@ class TestSSDBackwardEmulation:
                         assert (o is None) == (e is None)
                         if o is not None:
                             assert_close(o, e, TOL[dtype])
+
+
+    @pytest.mark.parametrize("case", SSD_CASES)
+    @pytest.mark.parametrize("inputs", ["float32", "bf16-exact"])
+    def test_bf16_planes_hold_the_f32_gate(self, case, inputs):
+        """With the kernel's rounding (`split`: f32 inputs, decay-weighted
+        operands, states, Gm and sum M as bf16 hi and lo planes, lo x lo
+        dropped) every gradient of f32 inputs, or of f32 inputs that bf16
+        holds exactly (the bf16 kernel's one plane), stays within 1e-4 of
+        its own largest in autograd of the plain version and of the oracle
+        in float64: half the card's 2e-4 gate (at most 3e-5 seen here)."""
+        b, s, h, p, n, g = case
+        arrays = list(ssd_np(b, s, h, p, n, g, seed=s))
+        if inputs == "bf16-exact":
+            for k in (0, 2, 3, 5):            # xdt, B, C, dy
+                arrays[k] = torch.as_tensor(arrays[k]).bfloat16().double().numpy()
+        x32, x64 = tensors(arrays, torch.float32), tensors(arrays, F64)
+        for init in (None, 4):
+            for fin in (None, 6):
+                ours = ssd_bwd_emulated(*x32[:4], init and x32[init], x32[5], fin and x32[fin],
+                                        init is not None, split=True)
+                for fn in (ssd_plain, ssd_ref):
+                    expect = autograd_grads(fn, [*x64[:4], init and x64[init]],
+                                            [x64[5], fin and x64[fin]])
+                    for o, e in zip(ours, expect):
+                        assert (o is None) == (e is None)
+                        if o is not None:
+                            assert_close(o, e, 1e-4)
 
 
 RGLRU_CASES = [(1, 8), (37, 64), (128, 16), (300, 36), (300, 37), (600, 8)]
