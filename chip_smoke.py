@@ -150,7 +150,32 @@ Phases, each of which must pass:
               layers x (2 forward, the pass and remat's recompute; 1
               backward).  B1 and B2 launch 0 times in the phase; B3's and
               B4's forward and backward launches equal what the layers
-              run need.
+              run need;
+ 12. sharding and the dry run, on a one-rank NCCL group and a (1, 1)
+              ("data", "model") mesh: (a) qwen3-1.7b trained as phase 11
+              (a) trains it, 2 steps on FSDP DTensors under the train
+              rules, against the unsharded step from the same weights
+              (losses within 1e-5, params after the 2 steps within
+              1e-4 x max(1, max|p|): the training gates; step walls
+              printed), and llama2-7b prefill + 7 greedy decode steps on
+              DTensors under the decode rules, B1 on the cache's S shard
+              with its LSE output and the merge by LSE (greedy tokens
+              identical, logits within relative L2 0.1, B1's launches
+              = layers x steps); (b) the dry run's trace of one more
+              train step and decode step on fake CUDA tensors (a child
+              process) against FlopCounterMode around the real
+              step on the card (B1's
+              plain version's count added for its launches) within 1e-6,
+              and its predicted peak within 15 % of max_memory_allocated;
+              (c) B1's LSE against the plain version's at the llama2 and
+              D=256 ring shapes, and B1 on 2 and 4 sequence slices merged
+              by LSE within 1 % of max|plain| of the whole; (d) the
+              dry-run CLI for qwen3-1.7b and deepseek-v3-671b x the four
+              input shapes on a fake 16 x 16 mesh, in a child process
+              started once the kernels are timed (as (b)'s) and joined
+              last: the child exits 0, every record ok and written in
+              this run, its table, its wall and the serve phases' walls
+              printed.
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's sources beside it, or when any phase fails.  The last line is
@@ -168,12 +193,14 @@ import math
 import os
 import platform
 import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 # CUDA-core f32, bf16 tensor; f64 outside the tensor cores (H100 SXM data sheet)
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 34e12}
@@ -228,6 +255,13 @@ class PhaseError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def power_draw() -> str:
+    """nvidia-smi's power.draw, or what kept it from being read."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=power.draw", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return res.stdout.strip() if res.returncode == 0 else f"not read ({res.stderr.strip()})"
 
 
 def nvidia_smi() -> str:
@@ -2728,7 +2762,6 @@ def train_resume(torch, cfg, full_layers, batch, seq) -> None:
     """(c) 4 steps straight against 2, a checkpoint saved, loaded and 2 more,
     under torch.use_deterministic_algorithms(True): parameters and
     optimizer state must be equal bit for bit."""
-    import shutil
     from repro_torch import checkpoint as ckptlib
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models import get_api
@@ -2791,7 +2824,6 @@ def train_main(torch, arch, batch, seq) -> None:
     losses; the checkpoint (params and AdamW state, ~20 GB) is removed
     after."""
     import io
-    import shutil
     from repro_torch.launch import train as train_mod
     ckpt_dir = ROOT / "build" / "train_main_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2958,6 +2990,379 @@ def _map(tree, fn):
     return {k: (_map(v, fn) if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the sharding layer on the card, and the dry run against it
+# ---------------------------------------------------------------------------
+
+# (a) the sharded runs: qwen3-1.7b trained as phase 11 (a) trains it, and
+# llama2-7b prefill + decode under the decode rules
+SHARD_TRAIN = TRAIN_DENSE[:3] + (2,)            # (arch, batch, seq, steps)
+SHARD_DECODE = ("llama2-7b", 4, 16, 8)          # (arch, batch, prompt, decode steps)
+# (c) B1's LSE and the merge of sequence slices, at these decode_shapes rows
+LSE_SHAPES = ("llama2-7b serve", "recurrentgemma-9b ring")
+LSE_SLICES = (2, 4)
+# (d) the dry-run campaign in a child process over the whole script
+DRYRUN_ARCHS = ("qwen3-1.7b", "deepseek-v3-671b")
+DRYRUN_OUT = ROOT / "build" / "dryrun_smoke"
+PEAK_TOL = 0.15             # predicted peak bytes against max_memory_allocated
+FLOPS_RTOL = 1e-6           # traced FLOPs against FlopCounterMode on the card
+
+
+def start_children() -> dict:
+    """Phase 12's host-only work, started once the kernels are timed (so
+    their host times are taken on a quiet host) and joined at the end:
+    (d) the dry-run CLI over DRYRUN_ARCHS x the four shapes on the pod
+    mesh (a fake group of 256 ranks), and (b)'s traces of (a)'s two steps
+    at the (1, 1) mesh (this script again, with --trace-steps).  An
+    earlier run's records are removed first."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmds = {
+        "campaign": [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+                     str(DRYRUN_OUT), "--force"] + [x for a in DRYRUN_ARCHS
+                                                    for x in ("--arch", a)],
+        "trace": [sys.executable, str(ROOT / "chip_smoke.py"), "--trace-steps",
+                  str(DRYRUN_OUT / "steps.json")],
+    }
+    kids = {}
+    for name, cmd in cmds.items():
+        log = open(DRYRUN_OUT / f"{name}.log", "w")
+        kids[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log, time.time())
+    return kids
+
+
+def stop_children(kids: dict) -> None:
+    for proc, log, _ in kids.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def train_shape():
+    from repro_torch.configs.shapes import InputShape
+    arch, batch, seq, _ = SHARD_TRAIN
+    return arch, InputShape("phase12_train", seq, batch, "train")
+
+
+def decode_shape():
+    from repro_torch.configs.shapes import InputShape
+    arch, batch, prompt, steps = SHARD_DECODE
+    return arch, InputShape("phase12_decode", prompt + steps, batch, "decode")
+
+
+def trace_steps(out_path: str) -> int:
+    """(b)'s traces, in a child: (a)'s train and decode steps on fake CUDA
+    tensors over a (1, 1) mesh of a fake one-rank group.  Writes their
+    per-device FLOPs and peak bytes as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shardrules
+    from repro_torch.launch.dryrun import trace_one
+    from repro_torch.launch.mesh import make_test_mesh, start_fake_group
+    start_fake_group(1)
+    mesh = make_test_mesh((1, 1))
+    out = {}
+    for kind, (arch, shape) in (("train", train_shape()), ("decode", decode_shape())):
+        cfg = get_config(arch)
+        rules = shardrules.build_rules(cfg, shape, multi_pod=False)
+        totals, peak, secs = trace_one(cfg, shape, mesh, rules, "cuda", full_depth=True)
+        out[kind] = {"flops": totals.flops, "peak": peak, "seconds": secs,
+                     "collective_bytes": dict(totals.collective_bytes)}
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+class B1Flops:
+    """While active, adds to `flops` what FlopCounterMode counts for B1's
+    plain version at the shapes of each launch (the kernel itself is
+    invisible to it), so a count around a real step holds what the dry
+    run counts when it runs the plain version on fake tensors."""
+
+    def __init__(self, torch, kda):
+        self.torch, self.kda, self.flops, self.cache = torch, kda, 0.0, {}
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import _disable_current_modes
+        from torch.utils.flop_counter import FlopCounterMode
+        torch, kda = self.torch, self.kda
+        self.orig = kda.decode_attention
+
+        def counted(q, k, v, pos, **kw):
+            key = (tuple(q.shape), tuple(k.shape), q.dtype, k.dtype, kw.get("lse", False))
+            if key not in self.cache:
+                meta = [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in (q, k, v)]
+                # counted alone: the enclosing FlopCounterMode must not see it
+                with _disable_current_modes(), FlopCounterMode(display=False) as fc:
+                    kda.decode_attention_plain(*meta, 0, **kw)
+                self.cache[key] = fc.get_total_flops()
+            self.flops += self.cache[key]
+            return self.orig(q, k, v, pos, **kw)
+
+        kda.decode_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.kda.decode_attention = self.orig
+
+
+def check_lse(torch, kda, shapes) -> None:
+    """(c) B1's LSE against the plain version's, and the outputs of B1 run
+    on 2 and 4 sequence slices merged by their LSEs against B1's own over
+    the whole cache, at B1's check tolerance (1 % of max|plain|)."""
+    for name in LSE_SHAPES:
+        shape = shapes[name]
+        B, Hq, Hkv, D, S, dtype, _ = shape
+        q, k, v = decode_inputs(torch, shape, seed=7)
+        for pos in (S // 3, S - 1):
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            out, lse = kda.decode_attention(q, k, v, p, lse=True)
+            ref_out, ref_lse = kda.decode_attention_plain(q, k, v, p, lse=True)
+            lse_err = (lse - ref_lse).abs().max().item()
+            print(f"[shard] (c) B1 LSE {name} pos={pos}: max|LSE - plain| {lse_err:.3g} "
+                  f"(|LSE| up to {ref_lse.abs().max().item():.3g})")
+            check(lse_err <= 1e-2 * max(1.0, ref_lse.abs().max().item()),
+                  f"B1's LSE at {name} pos={pos} is off the plain version's by {lse_err}")
+            for n in LSE_SLICES:
+                L = S // n
+                outs, lses = [], []
+                for i in range(n):
+                    rel = p - i * L
+                    o, s = kda.decode_attention(q, k[:, i * L:(i + 1) * L].contiguous(),
+                                                v[:, i * L:(i + 1) * L].contiguous(),
+                                                rel.clamp(0, L - 1), lse=True)
+                    outs.append(o.float())
+                    lses.append(torch.where(rel >= 0, s, -torch.inf))
+                lse_all = torch.stack(lses)
+                w = torch.exp(lse_all - lse_all.max(0).values)
+                merged = (torch.stack(outs) * w[..., None]).sum(0) / w.sum(0)[..., None]
+                err = (merged - out.float()).abs().max().item()
+                big = ref_out.float().abs().max().item()
+                print(f"[shard] (c) B1 on {n} slices of {name} pos={pos}, merged by LSE: "
+                      f"max|merged - whole| {err:.3g} ({err / big:.3g} of max|plain|)")
+                check(err <= 0.01 * big, f"the LSE merge of {n} slices disagrees at {name}")
+
+
+def shard_train(torch, mesh) -> dict:
+    """(a) qwen3-1.7b trained SHARD_TRAIN steps unsharded, then from the
+    same weights on FSDP DTensors under the train rules, and one more
+    sharded step counted for (b).  Returns its FLOPs and peak, and
+    DTensor's host ms on the first step."""
+    import numpy as np
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import shard
+    from repro_torch.checkpoint import flatten_tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shardrules
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import get_api
+    arch, shape = train_shape()
+    steps = SHARD_TRAIN[3]
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    batches = train_batches(torch, cfg, steps + 1, shape.global_batch, shape.seq_len, seed=3)
+
+    def fresh():
+        return api.init_params(cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+
+    def run(params, step_fn, opt, ctx):
+        state = opt.init(params)
+        losses, walls = [], []
+        with ctx():
+            for b in batches[:steps]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, params, state = step_fn(params, state, b)
+                losses.append(float(loss.full_tensor() if shard.is_dtensor(loss) else loss))
+                walls.append((time.perf_counter() - t0) * 1e3)
+        return params, state, losses, walls
+
+    rules = shardrules.build_rules(cfg, shape, multi_pod=False)
+    sizes = shardrules.mesh_axis_sizes(mesh)
+
+    @contextlib.contextmanager
+    def sharded():
+        with implicit_replication(), shard.use_rules(rules, sizes):
+            yield
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_fn, opt = build_train_step(cfg, lr=TRAIN_LR)
+    params, state, losses, walls = run(fresh(), step_fn, opt, contextlib.nullcontext)
+    p_ref = {k: v.cpu() for k, v in flatten_tree(params)}
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pspecs = shardrules.fsdp_specs(api.param_defs(cfg), rules, mesh)
+    step_fn, opt = build_train_step(cfg, lr=TRAIN_LR, param_pspecs=pspecs)
+    with sharded():
+        params = shardrules.distribute_tree(fresh(), pspecs, mesh)
+        batches = [shardrules.distribute_tree(b, shardrules.input_pspecs(b, rules), mesh)
+                   for b in batches]
+    params, state, s_losses, s_walls = run(params, step_fn, opt, sharded)
+    p_err = 0.0
+    for path, p in flatten_tree(params):
+        got, ref = p.full_tensor().float(), p_ref[path].to("cuda").float()
+        p_err = max(p_err, (got - ref).abs().max().item() / max(1.0, ref.abs().max().item()))
+    del p_ref, got, ref
+    # (b): one more step under FlopCounterMode (which runs some ops
+    # decomposed, so it comes after the comparison), its peak read from
+    # the allocator
+    with sharded(), FlopCounterMode(display=False) as fc:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(params, state, batches[steps])
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[shard] (a) {arch} FSDP on a (1, 1) mesh, batch {shape.global_batch} x seq "
+          f"{shape.seq_len}: losses {s_losses} vs unsharded {losses}; params after {steps} "
+          f"steps max|diff| / max(1, max|p|) {p_err:.3g}; step walls ms "
+          f"{np.round(s_walls, 1).tolist()} vs unsharded {np.round(walls, 1).tolist()}")
+    check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(s_losses, losses)),
+          f"{arch}: sharded losses {s_losses} differ from {losses}")
+    check(p_err <= 1e-4, f"{arch}: sharded params off the unsharded ones by {p_err}")
+    return {"flops": float(fc.get_total_flops()), "peak": peak,
+            "wall_ms": s_walls[0] - walls[0]}
+
+
+def shard_decode(torch, kda, mesh) -> dict:
+    """(a) llama2-7b: prefill SHARD_DECODE's prompt and decode greedily,
+    unsharded (B1) and on DTensors under the decode rules (B1 on the
+    cache's S shard, outputs merged by LSE); greedy tokens identical,
+    logits within check_full_width's relative L2 0.1.  One more decode
+    step is counted for (b).  Returns its FLOPs and peak."""
+    import numpy as np
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import shard
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shardrules
+    from repro_torch.models import get_api
+    arch, shape = decode_shape()
+    _, B, P, steps = SHARD_DECODE
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(6), "cuda")
+    prompt = torch.as_tensor(np.random.default_rng(6).integers(
+        1, cfg.vocab_size, (B, P)).astype(np.int32), device="cuda")
+
+    def greedy(params, prompt, lay_out=None):
+        logits, cache = api.prefill(cfg, params, {"tokens": prompt}, cache_len=shape.seq_len)
+        if lay_out:
+            cache = lay_out(cache)
+        out = [logits]
+        for _ in range(steps - 1):
+            tok = out[-1].full_tensor() if shard.is_dtensor(out[-1]) else out[-1]
+            tok = tok.argmax(-1).to(torch.int32)
+            if lay_out:
+                tok = shardrules.to_dtensor(tok, shardrules.input_pspecs(
+                    {"token": 0}, rules)["token"], mesh)
+            logits, cache = api.decode_step(cfg, params, cache, {"token": tok})
+            out.append(logits)
+        whole = [(x.full_tensor() if shard.is_dtensor(x) else x).float() for x in out]
+        return torch.stack(whole), cache, tok
+
+    rules = shardrules.build_rules(cfg, shape, multi_pod=False)
+    sizes = shardrules.mesh_axis_sizes(mesh)
+    with torch.no_grad():
+        ref, _, _ = greedy(params, prompt)
+        with implicit_replication(), shard.use_rules(rules, sizes):
+            dparams = shardrules.distribute_tree(params, api.param_specs(cfg, rules), mesh)
+            dprompt = shardrules.to_dtensor(prompt, shardrules.input_pspecs(
+                {"tokens": 0}, rules)["tokens"], mesh)
+            kda.launches = 0
+            got, cache, tok = greedy(dparams, dprompt, lambda c: shardrules.redistribute_tree(
+                c, shardrules.cache_pspecs(c, rules), mesh))
+            launches = kda.launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as fc, B1Flops(torch, kda) as b1:
+                api.decode_step(cfg, dparams, cache, {"token": tok})
+            torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+    rel = ((got - ref).norm() / ref.norm()).item()
+    per_step = [round(((g - r).norm() / r.norm()).item(), 4) for g, r in zip(got, ref)]
+    print(f"[shard] (a) {arch}: relative L2 per step (prefill first) {per_step}")
+    print(f"[shard] (a) {arch} prefill {P} + {steps - 1} decode steps on a (1, 1) mesh under "
+          f"the decode rules (cache S on 'model': B1 on the shard, merged by LSE): greedy "
+          f"tokens identical {same}, logits relative L2 {rel:.3g} (tol 0.1), B1 launches "
+          f"{launches} (want {cfg.n_layers * (steps - 1)})")
+    check(same and rel <= 0.1, f"{arch}: sharded decode differs from the unsharded one")
+    check(launches == cfg.n_layers * (steps - 1), f"{arch}: B1 launched {launches} times")
+    del params, dparams, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flops": float(fc.get_total_flops()) + b1.flops, "peak": peak}
+
+
+def run_sharded(torch, kda, shapes) -> dict:
+    """Phase 12 (a)-(c) on a one-rank NCCL group.  Returns (b)'s real
+    counts."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.perf_counter()
+    check_lse(torch, kda, shapes)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1))
+        real = {"train": shard_train(torch, mesh), "decode": shard_decode(torch, kda, mesh)}
+    finally:
+        dist.destroy_process_group()
+    print(f"[phase] sharding (a)-(c) s={time.perf_counter() - t0}")
+    return real
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def join_children(kids: dict, real: dict, serve_walls: dict) -> None:
+    """(b) the traces against the card's counts, (d) the campaign's
+    records and table."""
+    from repro_torch.analysis.report import load, markdown_table
+    waits = {}
+    for name, (proc, log, started) in kids.items():
+        rc = proc.wait(timeout=max(30.0, 1100.0 - (time.perf_counter() - T_START)))
+        log.flush()
+        # the child's own wall: from its start to its log's last write
+        waits[name] = os.path.getmtime(log.name) - started
+        check(rc == 0, f"child {name} exited {rc}: "
+              + (DRYRUN_OUT / f"{name}.log").read_text()[-3000:])
+    traced = json.loads((DRYRUN_OUT / "steps.json").read_text())
+    for kind in ("train", "decode"):
+        t, r = traced[kind], real[kind]
+        rel = abs(t["flops"] - r["flops"]) / r["flops"]
+        ratio = t["peak"] / r["peak"]
+        print(f"[shard] (b) {kind} step traced at (1, 1) on fake CUDA tensors in "
+              f"{t['seconds']:.1f} s: FLOPs {t['flops']:.6g} vs FlopCounterMode on the card "
+              f"{r['flops']:.6g} (rel {rel:.3g}); peak bytes {t['peak']} vs "
+              f"max_memory_allocated {r['peak']} (ratio {ratio:.4f})")
+        check(rel <= FLOPS_RTOL, f"(b) {kind}: traced FLOPs off the card's count by {rel}")
+        check(abs(ratio - 1) <= PEAK_TOL, f"(b) {kind}: predicted peak off by {ratio}")
+    recs = load(DRYRUN_OUT, "pod")
+    print("[dryrun] campaign table (H100_SXM pricing, 16 x 16 fake mesh):")
+    print(markdown_table(recs))
+    print(f"[dryrun] campaign child wall s={waits['campaign']}; (b) traces child wall "
+          f"s={waits['trace']}; serve phase walls s={serve_walls}")
+    names = {(r["arch"], r["shape"]) for r in recs}
+    check(len(recs) == 4 * len(DRYRUN_ARCHS) and len(names) == len(recs),
+          f"campaign: {len(recs)} ok records of {4 * len(DRYRUN_ARCHS)}: "
+          + (DRYRUN_OUT / "campaign.log").read_text()[-3000:])
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
@@ -2972,6 +3377,22 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = nvidia_smi()
+    print(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"[device] nvidia-smi: {smi}")
+    print(f"[device] total_memory {torch.cuda.get_device_properties(0).total_memory} B; "
+          f"power draw before any work: {power_draw()}")
+
+    kids = {}
+    try:
+        return run_phases(torch, kids, kind, count, smi)
+    finally:
+        stop_children(kids)
+
+
+def run_phases(torch, kids, kind, count, smi) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import cost_batch as kcb
     from repro_torch.kernels import decode_attention as kda
@@ -2979,11 +3400,6 @@ def main() -> int:
     from repro_torch.kernels import rglru_scan as krg
     from repro_torch.kernels import ssd_scan as kss
     from repro_torch.launch import serve as serve_mod
-
-    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = nvidia_smi()
-    print(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
-    print(f"[device] nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
     reports = _build.build()
@@ -3003,25 +3419,30 @@ def main() -> int:
     timing.update(time_scan_backwards(torch, kss, krg))
     timing.update(time_cost_batch(torch, kcb))
     time_simulate_batch(torch, kcb)
+    kids.update(start_children())
     t0 = time.perf_counter()
     analytic_launches = run_analytic(torch, kcb)
     print(f"[phase] analytic path s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     launches, card_profiles = run_serve(torch, kda, serve_mod)
     fp8_launches = check_outputs(torch, kda, serve_mod)
-    print(f"[phase] llama2 path (serve + outputs) s={time.perf_counter() - t0}")
+    serve_walls = {"llama2": time.perf_counter() - t0}
+    print(f"[phase] llama2 path (serve + outputs) s={serve_walls['llama2']}")
     t0 = time.perf_counter()
     scan_launches = run_scan_serve(torch, {"B3": kss, "B4": krg, "B1": kda}, serve_mod)
     check_scan_outputs(torch, serve_mod)
-    print(f"[phase] mamba2 + recurrentgemma path (serve + outputs) s={time.perf_counter() - t0}")
+    serve_walls["scan"] = time.perf_counter() - t0
+    print(f"[phase] mamba2 + recurrentgemma path (serve + outputs) s={serve_walls['scan']}")
     t0 = time.perf_counter()
     moe_launches = run_moe_serve(torch, kda, serve_mod)
     check_moe_outputs(torch, kda, serve_mod)
-    print(f"[phase] MoE path (serve + outputs) s={time.perf_counter() - t0}")
+    serve_walls["moe"] = time.perf_counter() - t0
+    print(f"[phase] MoE path (serve + outputs) s={serve_walls['moe']}")
     t0 = time.perf_counter()
     ev_launches = run_encdec_vlm_serve(torch, kda, serve_mod)
     check_encdec_vlm_outputs(torch, kda, serve_mod)
-    print(f"[phase] encdec + vlm path (serve + outputs) s={time.perf_counter() - t0}")
+    serve_walls["encdec_vlm"] = time.perf_counter() - t0
+    print(f"[phase] encdec + vlm path (serve + outputs) s={serve_walls['encdec_vlm']}")
     t0 = time.perf_counter()
     run_cluster(torch, kda, serve_mod, card_profiles)
     print(f"[phase] cluster (fig4, bench_cluster, card-fitted profiles, online router) "
@@ -3031,6 +3452,8 @@ def main() -> int:
     print(f"[phase] training (qwen3-1.7b, granite-moe-3b-a800m, resume, reduced, CLI, "
           f"mamba2-130m, recurrentgemma-9b) "
           f"s={time.perf_counter() - t0}")
+    real = run_sharded(torch, kda, shapes)
+    join_children(kids, real, serve_walls)
 
     def entry(name, source, replaces, n, err, shape):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
@@ -3081,6 +3504,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-steps"]:
+        sys.exit(trace_steps(sys.argv[2]))
     try:
         sys.exit(main())
     except PhaseError as e:

@@ -129,6 +129,24 @@ TPU_V5E = AcceleratorSpec(
     peak_w=220.0,
 )
 
+# --- the port's card: NVIDIA H100 SXM (prices the port's dry run) ----------
+# Dense bf16 peak, HBM3 rate and NVLink 4 (18 links of 25 GB/s a direction)
+# from NVIDIA's H100 SXM specification; hbm_bytes as
+# torch.cuda.get_device_properties(0).total_memory reports it on an
+# "NVIDIA H100 80GB HBM3", idle_w as nvidia-smi's power.draw read that card
+# before any work, peak_w its power limit (700.00 W).
+
+H100_SXM = AcceleratorSpec(
+    name="h100-sxm",
+    peak_flops=989e12,
+    hbm_bw=3.35e12,
+    ici_bw=25e9,
+    hbm_bytes=85017493504.0,
+    idle_w=71.66,
+    peak_w=700.0,
+)
+H100_NVLINK_LINKS = 18
+
 # --- the paper's hardware (for reproducing its absolute numbers) -----------
 
 A100_40GB = AcceleratorSpec(

@@ -237,13 +237,17 @@ template <int GB, int D, typename T>
 __device__ void finish(const float* o_s, const float* m_s, const float* l_s, float* w_s,
                        float* L_s, int* last_s, T* __restrict__ out,
                        float* __restrict__ part, int* __restrict__ counters,
-                       const Geometry& g, int G, int Hkv, int n_splits) {
+                       float* __restrict__ lse, const Geometry& g, int G, int Hkv,
+                       int n_splits) {
   constexpr int NCH = GB * D / 4;                      // float4 chunks of a partial
   constexpr int CPT = (NCH + kThreads - 1) / kThreads;
   const int tid = threadIdx.x;
   const int n_ch = g.rows * D / 4;
-  T* outp = out + ((size_t)g.b * Hkv * G + (size_t)g.h * G + g.gt * GB) * D;
+  const size_t row0 = (size_t)g.b * Hkv * G + (size_t)g.h * G + g.gt * GB;
+  T* outp = out + row0 * D;
   if (g.n_used == 1) {
+    if (lse)
+      for (int r = tid; r < g.rows; r += kThreads) lse[row0 + r] = m_s[r] + logf(l_s[r]);
     for (int c = tid; c < n_ch; c += kThreads) {
       const int r = c * 4 / D;
       const float inv = 1.f / l_s[r];
@@ -291,6 +295,7 @@ __device__ void finish(const float* o_s, const float* m_s, const float* l_s, flo
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) L += __shfl_xor_sync(kFull, L, off);
     if (lane == 0) L_s[r] = L;
+    if (lse && lane == 0) lse[row0 + r] = M + logf(L);
   }
   __syncthreads();
   // The partials of SB splits are all requested before any is summed, so
@@ -376,7 +381,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_bf16_kernel(const bf16* __restrict__ q, const CT* __restrict__ k,
                          const CT* __restrict__ v, const int* __restrict__ pos_ptr,
                          bf16* __restrict__ out, float* __restrict__ part,
-                         int* __restrict__ counters, int S, int Hkv, int G, int n_splits,
+                         int* __restrict__ counters, float* __restrict__ lse, int S,
+                         int Hkv, int G, int n_splits,
                          int n_stages, float scale, float softcap) {
   using L = MmaLayout<D, CT>;
   constexpr int LD = L::LD;
@@ -599,8 +605,8 @@ flash_decode_bf16_kernel(const bf16* __restrict__ q, const CT* __restrict__ k,
     reinterpret_cast<float4*>(ow)[i] = a;
   }
   __syncthreads();
-  finish<kMmaHeads, D>(ow, m_fin, l_fin, w_s, L_fin, &last, out, part, counters, g, G, Hkv,
-                       n_splits);
+  finish<kMmaHeads, D>(ow, m_fin, l_fin, w_s, L_fin, &last, out, part, counters, lse, g, G,
+                       Hkv, n_splits);
 }
 
 // ---------------------------------------------------------------------------
@@ -644,7 +650,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_f32_kernel(const float* __restrict__ q, const CT* __restrict__ k,
                         const CT* __restrict__ v, const int* __restrict__ pos_ptr,
                         float* __restrict__ out, float* __restrict__ part,
-                        int* __restrict__ counters, int S, int Hkv, int G, int n_splits,
+                        int* __restrict__ counters, float* __restrict__ lse, int S,
+                        int Hkv, int G, int n_splits,
                         int n_stages, float scale, float softcap) {
   using L = F32Layout<D, CT>;
   constexpr int GB = kF32Heads;
@@ -805,7 +812,7 @@ flash_decode_f32_kernel(const float* __restrict__ q, const CT* __restrict__ k,
     }
   }
   __syncthreads();
-  finish<GB, D>(o_s, m_fin, l_fin, w_s, L_fin, &last, out, part, counters, g, G, Hkv,
+  finish<GB, D>(o_s, m_fin, l_fin, w_s, L_fin, &last, out, part, counters, lse, g, G, Hkv,
                 n_splits);
 }
 
@@ -845,8 +852,9 @@ inline int longest_split(int S, int n_splits) {
 
 template <int D, typename CT>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* pos,
-                        void* out, void* part, void* counters, int B, int Hq, int Hkv, int S,
-                        int n_splits, float scale, float softcap, cudaStream_t st) {
+                        void* out, void* part, void* counters, void* lse, int B, int Hq,
+                        int Hkv, int S, int n_splits, float scale, float softcap,
+                        cudaStream_t st) {
   using L = MmaLayout<D, CT>;
   static_assert(L::max_stages() >= 1, "a ring stage must fit");
   static std::atomic<uint64_t> configured{0};
@@ -859,14 +867,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   kernel<<<grid, kThreads, L::smem_bytes(stages), st>>>(
       static_cast<const bf16*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v),
       static_cast<const int*>(pos), static_cast<bf16*>(out), static_cast<float*>(part),
-      static_cast<int*>(counters), S, Hkv, G, n_splits, stages, scale, softcap);
+      static_cast<int*>(counters), static_cast<float*>(lse), S, Hkv, G, n_splits, stages,
+      scale, softcap);
   return cudaGetLastError();
 }
 
 template <int D, typename CT>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* pos,
-                       void* out, void* part, void* counters, int B, int Hq, int Hkv, int S,
-                       int n_splits, float scale, float softcap, cudaStream_t st) {
+                       void* out, void* part, void* counters, void* lse, int B, int Hq,
+                       int Hkv, int S, int n_splits, float scale, float softcap,
+                       cudaStream_t st) {
   using L = F32Layout<D, CT>;
   static_assert(L::max_stages() >= 1, "a ring stage must fit");
   static std::atomic<uint64_t> configured{0};
@@ -879,12 +889,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   kernel<<<grid, kThreads, L::smem_bytes(stages), st>>>(
       static_cast<const float*>(q), static_cast<const CT*>(k), static_cast<const CT*>(v),
       static_cast<const int*>(pos), static_cast<float*>(out), static_cast<float*>(part),
-      static_cast<int*>(counters), S, Hkv, G, n_splits, stages, scale, softcap);
+      static_cast<int*>(counters), static_cast<float*>(lse), S, Hkv, G, n_splits, stages,
+      scale, softcap);
   return cudaGetLastError();
 }
 
 using Launcher = cudaError_t (*)(const void*, const void*, const void*, const void*, void*,
-                                 void*, void*, int, int, int, int, int, float, float,
+                                 void*, void*, void*, int, int, int, int, int, float, float,
                                  cudaStream_t);
 
 template <int D>
@@ -900,11 +911,14 @@ Launcher pick(int q_dtype, int cache_fp8) {
 // split_plan).  part: a workspace of
 // B*Hkv*ceil(G/heads)*n_splits*heads*(D+2) floats (heads = 8 for float32,
 // 16 for bfloat16); counters: B*Hkv*ceil(G/heads) int32, zero before the
-// first launch and left zero by every launch.  Returns a cudaError_t.
+// first launch and left zero by every launch.  lse: null, or B*Hq floats
+// that receive each query row's log-sum-exp of its scaled (softcapped)
+// scores over the valid keys (what a caller merging sequence shards
+// needs).  Returns a cudaError_t.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, void* out, void* part,
-                                       void* counters, int q_dtype, int cache_fp8, int B,
-                                       int Hq, int Hkv, int S, int D, int n_splits,
+                                       void* counters, void* lse, int q_dtype, int cache_fp8,
+                                       int B, int Hq, int Hkv, int S, int D, int n_splits,
                                        float scale, float softcap, void* stream) {
   if (q_dtype < 0 || q_dtype > 1 || n_splits < 1 || n_splits > kMaxSplits || S < 1 ||
       Hkv < 1 || Hq % Hkv)
@@ -917,6 +931,6 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
     case 256: fn = pick<256>(q_dtype, cache_fp8); break;
     default: return cudaErrorInvalidValue;
   }
-  return fn(q, k, v, pos, out, part, counters, B, Hq, Hkv, S, n_splits, scale, softcap,
+  return fn(q, k, v, pos, out, part, counters, lse, B, Hq, Hkv, S, n_splits, scale, softcap,
             static_cast<cudaStream_t>(stream));
 }

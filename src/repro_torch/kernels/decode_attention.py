@@ -9,7 +9,15 @@ ring-buffer rule and fp8 e4m3 caches (computed in q's dtype).
 
 `decode_attention` is the one entry point.  For CPU tensors it runs
 `decode_attention_plain`, the same function in plain PyTorch; for CUDA
-tensors it launches the kernel or raises, and never falls back.
+tensors it launches the kernel or raises, and never falls back.  Fake
+tensors (the dry run's, which hold no data) go through the plain version
+too: it gives the outputs' shapes and dtypes without a launch,
+and its ops are the FLOPs a trace counts for the kernel.
+
+With `lse=True` both also return each query row's log-sum-exp of its
+scores over the valid keys, [B, Hq] f32: what merging the outputs of
+sequence shards needs (`models.attention` does so when the cache is
+sharded along S).  The kernel writes it only when asked.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import functools
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 
@@ -44,14 +53,15 @@ _MERGE_RATIO = 2.0
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, pos, *, ring: bool = False,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0, lse: bool = False):
     """One-token attention over a cache, in plain PyTorch.
 
     q: [B, Hq, D]; k_cache, v_cache: [B, S, Hkv, D]; pos: absolute position
     of the current token (already written into the cache).
     ring=False: entries with index > pos are masked.  ring=True: sliding-
     window ring buffer, every slot valid once pos+1 >= S, else slots > pos
-    masked.  Returns [B, Hq, D] in q's dtype."""
+    masked.  Returns [B, Hq, D] in q's dtype, and with lse=True also the
+    rows' log-sum-exp of the masked scores, [B, Hq] f32."""
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -68,17 +78,19 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
         valid = valid | (pos >= S - 1)
     s = torch.where(valid, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", w.to(v.dtype), v)
-    return o.reshape(B, Hq, D)
+    o = torch.einsum("bhgk,bkhd->bhgd", w.to(v.dtype), v).reshape(B, Hq, D)
+    if lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, Hq)
+    return o
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos, *, ring: bool = False,
-                     softcap: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0, lse: bool = False):
     """`decode_attention_plain`'s function: the plain version on CPU
-    tensors, the CUDA kernel on CUDA tensors.  `pos` is an int or a 0-d
-    int32 tensor on q's device.  The kernel has no backward: on CUDA
-    inputs that need a gradient it raises."""
+    tensors (and on fake ones), the CUDA kernel on CUDA tensors.
+    `pos` is an int or a 0-d int32 tensor on q's device.  The kernel has
+    no backward: on CUDA inputs that need a gradient it raises."""
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"want q [B,Hq,D], k/v [B,S,Hkv,D]; got {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -87,9 +99,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if Bk != B or Dk != D or Hq % Hkv or S < 1:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache {tuple(k_cache.shape)}")
     devices = {q.device, k_cache.device, v_cache.device}
-    if devices == {torch.device("cpu")}:
+    if devices == {torch.device("cpu")} or isinstance(q, FakeTensor):
         return decode_attention_plain(q, k_cache, v_cache, pos, ring=ring,
-                                      softcap=softcap)
+                                      softcap=softcap, lse=lse)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on CPU or CUDA tensors on one "
                          f"device; got {sorted(map(str, devices))}")
@@ -99,7 +111,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            "torch.no_grad()")
     # The ring rule keeps the same keys as idx <= pos for every pos >= 0, so
     # the kernel needs no ring flag (see the note in the CUDA source).
-    return _launch(q, k_cache, v_cache, pos, softcap)
+    return _launch(q, k_cache, v_cache, pos, softcap, lse)
 
 
 @functools.lru_cache(maxsize=256)
@@ -125,7 +137,7 @@ def plan(B: int, Hq: int, Hkv: int, S: int, D: int, q_dtype: torch.dtype,
 @functools.cache
 def _kernel():
     fn = _build.load("decode_attention").decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -156,7 +168,7 @@ def _workspace(device: torch.device, stream: int, n_part: int, n_counters: int):
     return ws
 
 
-def _launch(q, k_cache, v_cache, pos, softcap):
+def _launch(q, k_cache, v_cache, pos, softcap, want_lse=False):
     global launches
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
@@ -182,11 +194,13 @@ def _launch(q, k_cache, v_cache, pos, softcap):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part, counters = _workspace(q.device, stream, n_bhg * n_splits * heads * (D + 2), n_bhg)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device) if want_lse else None
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), part.data_ptr(), counters.data_ptr(), _Q_CODES[q.dtype],
+             out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+             lse.data_ptr() if want_lse else None, _Q_CODES[q.dtype],
              int(k_cache.dtype == torch.float8_e4m3fn), B, Hq, Hkv, S, D, n_splits,
              1.0 / math.sqrt(D), float(softcap or 0.0), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError_t {err}")
     launches += 1
-    return out
+    return (out, lse) if want_lse else out

@@ -25,7 +25,8 @@ kernels as one `torch.autograd.Function`.
 `rglru_scan_plain`, the same function in plain PyTorch, which autograd
 differentiates; for CUDA tensors it launches the kernel (through
 `_RGLRUScan` when an input needs a gradient) or raises, and never falls
-back.
+back.  Fake tensors (a dry run's) take the plain version: the
+outputs' shapes without a launch, its FLOPs counted.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 
@@ -94,7 +96,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None)
         raise ValueError(f"h0 must be [B,W] = {(Bsz, W)}; got {tuple(h0.shape)}")
     tensors = [a, b] + ([] if h0 is None else [h0])
     devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+    if devices == {torch.device("cpu")} or any(isinstance(t, FakeTensor) for t in tensors):
         return rglru_scan_plain(a, b, h0)
     if len(devices) != 1 or a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on CPU or CUDA tensors on one device; "

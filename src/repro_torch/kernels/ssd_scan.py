@@ -37,7 +37,8 @@ wraps forward and backward as one `torch.autograd.Function`.
 `ssd_scan_plain`, the port of `ssd_chunked` in plain PyTorch, which
 autograd differentiates; for CUDA tensors it launches the kernel of the
 input type (through `_SSDScan` when an input needs a gradient) or raises,
-and never falls back.
+and never falls back.  Fake tensors (a dry run's) take the plain
+version: the outputs' shapes without a launch, its FLOPs counted.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 
@@ -153,7 +155,7 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
                          f"{None if h0 is None else tuple(h0.shape)}")
     tensors = [xdt, dA, B, C] + ([] if h0 is None else [h0])
     devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+    if devices == {torch.device("cpu")} or any(isinstance(t, FakeTensor) for t in tensors):
         return ssd_scan_plain(xdt, dA, B, C, chunk=chunk, h0=h0)
     if len(devices) != 1 or xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CPU or CUDA tensors on one device; "

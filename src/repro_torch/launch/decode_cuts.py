@@ -74,7 +74,7 @@ def _build_all(sources: dict[str, str]) -> dict:
         if proc.wait():
             raise RuntimeError(f"variant {name!r} did not build")
         fn = ctypes.CDLL(str(OUT / f"{name}.so")).decode_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn

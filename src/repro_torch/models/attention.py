@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import shard
 from repro_torch.kernels import decode_attention as _decode_kernel
 
 NEG_INF = -1e30
@@ -33,6 +34,8 @@ def _f32_out(*operands) -> bool:
     the CPU because the overload has no CPU kernel.  bf16 x bf16 is exact in
     f32, so both give the same products, summed in another order."""
     a = operands[0]
+    if shard.is_dtensor(a):      # DTensor has no sharding strategy for bmm.dtype
+        return False
     return (a.is_cuda and a.dtype in (torch.bfloat16, torch.float16)
             and all(t.dtype == a.dtype for t in operands)
             and not (torch.is_grad_enabled() and any(t.requires_grad for t in operands)))
@@ -40,6 +43,9 @@ def _f32_out(*operands) -> bool:
 
 def _gqa_scores(q, k):
     """q [B,Cq,Hkv,G,D] . k [B,Sk,Hkv,D] -> f32 scores [B,Hkv,G,Cq,Sk]."""
+    if shard.is_dtensor(q) or shard.is_dtensor(k):
+        # on each device's shards, with this function's own arithmetic
+        return shard.local_einsum("bqhgd,bkhd->bhgqk", (q, k), _gqa_scores)
     if _f32_out(q, k):
         # 16-bit operands, f32 output: on the card, no gradient taken
         B, Cq, Hkv, G, D = q.shape
@@ -85,6 +91,9 @@ def full_attention(
     G = Hq // Hkv
     scale = 1.0 / (D ** 0.5)
     qg = q.reshape(B, Sq, Hkv, G, D)
+    qg = shard.constrain(qg, "batch", "seq", "kv_heads", None, None)
+    k = shard.constrain(k, "batch", "seq", "kv_heads", None)
+    v = shard.constrain(v, "batch", "seq", "kv_heads", None)
     k_pos = torch.arange(Sk, device=q.device)
 
     def mask_for(q_pos):
@@ -126,8 +135,55 @@ def decode_attention(
     generated prefix).  ring=True: sliding-window ring buffer — every slot
     is valid once pos+1 >= S, else slots > pos are masked.
     """
+    if shard.is_dtensor(k_cache):
+        k_cache = shard.constrain(k_cache, "batch", "kv_seq", "kv_heads", None)
+        v_cache = shard.constrain(v_cache, "batch", "kv_seq", "kv_heads", None)
+        return _decode_attention_sharded(q, k_cache, v_cache, pos, ring=ring,
+                                         softcap=softcap)
     return _decode_kernel.decode_attention(q, k_cache, v_cache, pos, ring=ring,
                                            softcap=softcap)
+
+
+def _decode_attention_sharded(q, k_cache, v_cache, pos, *, ring, softcap):
+    """decode_attention over DTensor caches: B1 on each device's shard
+    (`shard.local_call`, the pattern of DTensor's `local_map`), q laid out
+    as the cache's batch and heads are.  Where the cache's sequence is
+    sharded (the decode rules' flash-decode layout), each shard attends over its own keys (a shard starting at s0
+    sees position pos - s0; one wholly past pos gives nothing, its LSE
+    -inf) and the shards' outputs are merged by their log-sum-exps: an
+    all-reduce of the max, then of the rescaled sums, over the mesh dims
+    that shard S.  The ring rule keeps the keys idx <= pos for every
+    pos >= 0, so on a shard it is applied with global indices by the
+    same clamp."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = k_cache.device_mesh
+    cache_pl = tuple(k_cache.placements)
+    q_pl = shard.moved(cache_pl, {0: 0, 2: 1})        # [B,S,Hkv,D] -> [B,Hq,D]
+    s_dims = shard.mesh_dims_of(k_cache, 1)
+    s0, s_len = shard.shard_offset(k_cache, 1)
+    pos_pl = tuple(pos.placements) if shard.is_dtensor(pos) else None
+
+    def local(q_l, k_l, v_l, pos_l):
+        if not s_dims:
+            return _decode_kernel.decode_attention(q_l.contiguous(), k_l, v_l, pos_l,
+                                                   ring=ring, softcap=softcap)
+        p = pos_l - s0
+        o, lse = _decode_kernel.decode_attention(
+            q_l.contiguous(), k_l, v_l, p.clamp(0, s_len - 1), softcap=softcap, lse=True)
+        lse = torch.where(p >= 0, lse, -torch.inf)
+        m = lse
+        for d in s_dims:
+            m = funcol.all_reduce(m, "max", (mesh, d))
+        w = torch.exp(lse - m)
+        num = o.float() * w[..., None]
+        for d in s_dims:
+            num = funcol.all_reduce(num, "sum", (mesh, d))
+            w = funcol.all_reduce(w, "sum", (mesh, d))
+        return (num / w[..., None]).to(q_l.dtype)
+
+    return shard.local_call(local, mesh, (q, k_cache, v_cache, pos),
+                            (q_pl, cache_pl, cache_pl, pos_pl), [q_pl])
 
 
 # ---------------------------------------------------------------------------

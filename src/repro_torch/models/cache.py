@@ -26,6 +26,8 @@ import dataclasses
 
 import torch
 
+from repro_torch import shard
+
 
 @dataclasses.dataclass
 class KVCache:
@@ -182,15 +184,48 @@ def write_token(cache_l: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) ->
     cache_l [B, S, ...rest]; new [B, ...rest]; slot a 0-d integer tensor on
     the cache's device.  fp8 slots are written through a uint8 view, since
     `index_copy_` has no float8 kernel."""
+    if shard.is_dtensor(cache_l):
+        return _write_token_sharded(cache_l, new, slot)
     new = to_cache_dtype(new[:, None], cache_l.dtype)
     if cache_l.dtype == torch.float8_e4m3fn:
         cache_l, new = cache_l.view(torch.uint8), new.view(torch.uint8)
     cache_l.index_copy_(1, slot.reshape(1).long(), new)
 
 
+def _write_token_sharded(cache_l, new, slot) -> None:
+    """write_token into a DTensor cache, on each device's shard: where the
+    sequence is sharded, only the shard holding `slot` writes it (the
+    others write back what they hold, so no device reads `slot` to the
+    host)."""
+    cache_pl = tuple(cache_l.placements)
+    new_pl = shard.moved(cache_pl, {0: 0, **{d: d - 1 for d in range(2, cache_l.ndim)}})
+    s0, s_len = shard.shard_offset(cache_l, 1)
+    slot_pl = tuple(slot.placements) if shard.is_dtensor(slot) else None
+
+    def local(c_l, n_l, slot_l):
+        n_l = to_cache_dtype(n_l[:, None], c_l.dtype)
+        if c_l.dtype == torch.float8_e4m3fn:
+            c_l, n_l = c_l.view(torch.uint8), n_l.view(torch.uint8)
+        at = slot_l - s0
+        idx = at.clamp(0, s_len - 1).reshape(1).long()
+        here = (at >= 0) & (at < s_len)
+        c_l.index_copy_(1, idx, torch.where(here, n_l, c_l.index_select(1, idx)))
+
+    shard.local_call(local, cache_l.device_mesh, (cache_l, new, slot),
+                     (cache_pl, new_pl, slot_pl), [])
+
+
 def ring_pack(ks: torch.Tensor, vs: torch.Tensor, window: int, pos_end: int):
     """Pack full-sequence K/V [L,B,S,H,D] into ring buffers [L,B,W,H,D]
-    holding the last min(S, W) positions at slot = pos % W."""
+    holding the last min(S, W) positions at slot = pos % W.  DTensors are
+    packed replicated (DTensor has no sharding strategy for the indexed
+    write, `index_put_`, on some versions); the cache's layout follows."""
+    if shard.is_dtensor(ks):
+        return shard.replicated(_ring_pack)(ks, vs, window, pos_end)
+    return _ring_pack(ks, vs, window, pos_end)
+
+
+def _ring_pack(ks, vs, window, pos_end):
     S = ks.shape[2]
     take = min(S, window)
     slots = torch.arange(pos_end - take, pos_end, device=ks.device) % window

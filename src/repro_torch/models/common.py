@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import shard
+
 
 # ---------------------------------------------------------------------------
 # Config
@@ -188,12 +190,31 @@ def init_params(defs: ParamTree, generator: torch.Generator,
     return params
 
 
+def param_specs(defs: ParamTree, rules=None) -> dict:
+    """Spec tree matching init_params' structure."""
+    specs: dict = {}
+    for path, d in _flatten_defs(defs):
+        _set_path(specs, path, shard.resolve(d.axes, rules))
+    return specs
+
+
+def param_shapes(defs: ParamTree, dtype: torch.dtype) -> dict:
+    """init_params' tree as tensors on the meta device (shape and dtype,
+    no storage)."""
+    out: dict = {}
+    for path, d in _flatten_defs(defs):
+        _set_path(out, path, torch.empty(d.shape, dtype=dtype, device="meta"))
+    return out
+
+
 def unstack_layers(tree: dict) -> list[dict]:
     """A layer-stacked param tree as a list of per-layer trees (views of
     one `unbind` per leaf).  Its backward is one stack per leaf, where
     indexing layer by layer would make a full-size zero gradient per
-    layer and leaf."""
-    per_leaf = {k: (unstack_layers(v) if isinstance(v, dict) else v.unbind(0))
+    layer and leaf.  A DTensor leaf whose layer axis is sharded (FSDP may
+    pick it) is gathered first: DTensor unbinds no sharded dim."""
+    per_leaf = {k: (unstack_layers(v) if isinstance(v, dict)
+                    else shard.gather_dim(v, 0).unbind(0))
                 for k, v in tree.items()}
     n = len(next(iter(per_leaf.values())))
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
@@ -235,6 +256,7 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = x @ w_gate
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
+    h = shard.constrain(h, "batch", None, "mlp") if h.ndim == 3 else h
     return h @ w_down
 
 
@@ -262,7 +284,8 @@ def padded_vocab(v: int, multiple: int = 128) -> int:
 
 
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, emb.shape[-1])
+    x = emb.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, emb.shape[-1])
+    return shard.constrain(x, "batch", "seq", None)
 
 
 def lm_logits(x: torch.Tensor, head: torch.Tensor, n_valid: int | None = None) -> torch.Tensor:
@@ -272,6 +295,10 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor, n_valid: int | None = None) -
     if n_valid is not None and n_valid < head.shape[-1]:
         col = torch.arange(head.shape[-1], device=logits.device)
         logits = torch.where(col < n_valid, logits, -1e30)
+    if logits.ndim == 3:
+        logits = shard.constrain(logits, "batch", "seq", "vocab")
+    else:
+        logits = shard.constrain(logits, "batch", "vocab")
     return logits
 
 
@@ -280,7 +307,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Ten
     mask = (labels >= 0).float()
     safe = labels.clamp(min=0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    # a vocab-sharded DTensor's gather is a masked partial sum: reduced
+    # before the index drops its dim (DTensor's mask misapplies after it)
+    gold = shard.reduce_partial(torch.gather(logits, -1, safe[..., None]))[..., 0]
     nll = (logz - gold) * mask
     n = mask.sum().clamp(min=1.0)
     return nll.sum() / n, n
@@ -296,6 +325,8 @@ def maybe_remat(fn: Callable, enabled: bool) -> Callable:
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        # the recompute runs inside the backward: with_layouts restores the
+        # rules there (a no-op without them)
+        return checkpoint(shard.with_layouts(fn), *args, use_reentrant=False)
 
     return run

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import cache as cachelib
 from repro_torch.models.common import (
@@ -167,6 +168,7 @@ def forward_full(cfg: ModelConfig, blocks: dict, x: torch.Tensor, *,
     is recomputed in the backward pass when cfg.remat is on."""
 
     def body(h, pl):
+        h = shard.constrain(h, "batch", "seq", None)
         a, k, v = attention_full(cfg, pl["attn"],
                                  rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps),
                                  q_offset=q_offset, window=window)

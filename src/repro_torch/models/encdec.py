@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import cache as cachelib
 from repro_torch.models import dense
@@ -89,6 +90,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor
     """frames [B, T, d] (stubbed frontend output) -> memory [B, T, d]."""
 
     def body(h, pl):
+        h = shard.constrain(h, "batch", "seq", None)
         a, _, _ = dense.attention_full(cfg, pl["attn"],
                                        rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps),
                                        causal=False)
@@ -132,6 +134,7 @@ def decode_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     None), each stacked over layers: ks [L, B, S, H, Dh], ck [L, B, T, H, Dh]."""
 
     def body(h, pl):
+        h = shard.constrain(h, "batch", "seq", None)
         a, k, v = dense.attention_full(
             cfg, pl["self"], rmsnorm(h, pl["ln_self"]["w"], cfg.rmsnorm_eps),
             window=window)

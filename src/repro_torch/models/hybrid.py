@@ -24,6 +24,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import shard
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.models import cache as cachelib
 from repro_torch.models import dense
@@ -121,7 +122,8 @@ def _lru_coeffs(pl: dict, u: torch.Tensor):
     uf = u.float()
     r = torch.sigmoid(uf @ pl["w_a"].float() + pl["b_a"].float())
     i = torch.sigmoid(uf @ pl["w_i"].float() + pl["b_i"].float())
-    log_a0 = F.logsigmoid(pl["lam"].float())                  # [w]
+    # replicated under DTensor: log_sigmoid_backward has no sharding strategy
+    log_a0 = shard.replicated(F.logsigmoid)(pl["lam"].float())   # [w]
     log_a = LRU_C * r * log_a0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * uf)
@@ -132,7 +134,16 @@ def rglru_scan(pl: dict, u: torch.Tensor, h0: torch.Tensor | None = None):
     """RG-LRU over u [B,S,w] through kernel B4.  Returns (h [B,S,w] f32,
     h_last [B,w])."""
     a, b = _lru_coeffs(pl, u)
-    return _rglru.rglru_scan(a, b, h0)
+    if not shard.is_dtensor(a):
+        return _rglru.rglru_scan(a, b, h0)
+    # on DTensors, B4 on each device's shards (`shard.local_call`): batch and
+    # width stay as they are sharded, a sharded sequence (the scan's axis)
+    # is gathered first
+    ab_pl = shard.moved(a.placements, {0: 0, 2: 2})
+    last_pl = shard.moved(a.placements, {0: 0, 2: 1})
+    split = [m for m, p in enumerate(ab_pl) if p.is_shard()]
+    return shard.local_call(_rglru.rglru_scan, a.device_mesh, (a, b, h0),
+                            (ab_pl, ab_pl, last_pl), [ab_pl, last_pl], split_dims=split)
 
 
 def rglru_step(pl: dict, u: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -149,7 +160,8 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 def _rec_mix_full(cfg, pl, x):
     """Recurrent temporal-mixing branch, full sequence.  x [B,S,d]."""
     gate = _gelu((x @ pl["w_gate"]).float())
-    u, conv_state = _causal_conv(x @ pl["w_x"], pl["conv_w"], pl["conv_b"])
+    u = shard.constrain(x @ pl["w_x"], "batch", "seq", "lru")
+    u, conv_state = _causal_conv(u, pl["conv_w"], pl["conv_b"])
     h, h_last = rglru_scan(pl, u)
     y = (gate * h).to(x.dtype)
     return y @ pl["w_out"], h_last, conv_state
@@ -212,6 +224,7 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     reference's scan bodies are."""
 
     def unit_body(h, pu):
+        h = shard.constrain(h, "batch", "seq", None)
         h, st_a, cv_a = _rec_block_full(cfg, pu["rec_a"], h)
         h, st_b, cv_b = _rec_block_full(cfg, pu["rec_b"], h)
         h, k, v = _attn_block_full(cfg, pu["attn"], h, cfg.local_window)

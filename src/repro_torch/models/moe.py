@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import shard
 from repro_torch.models import attention as attnlib
 from repro_torch.models import cache as cachelib
 from repro_torch.models import dense
@@ -154,13 +155,19 @@ class _Dispatch(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xt, slot2tok, tok2slot):
         ctx.save_for_backward(tok2slot)
-        return _masked_take(xt, slot2tok, xt.shape[0])
+        ctx.rules = shard.capture()     # the backward may run on another thread
+        buf = _masked_take(xt, slot2tok, xt.shape[0])
+        return shard.constrain(buf, None, None, "moe_embed")
 
     @staticmethod
     def backward(ctx, g):
         tok2slot, = ctx.saved_tensors
         E, C, d = g.shape
-        return _masked_take(g.reshape(E * C, d), tok2slot, E * C).sum(1), None, None
+        with ctx.rules():
+            g = shard.constrain(g, None, None, "moe_embed")
+            gt = _masked_take(g.reshape(E * C, d), tok2slot, E * C)      # [T, K, d]
+            gt = shard.constrain(gt, None, None, "moe_embed")
+            return gt.sum(1), None, None
 
 
 class _Combine(torch.autograd.Function):
@@ -172,18 +179,30 @@ class _Combine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, gates, tok2slot, slot2pair):
         ctx.save_for_backward(y, gates, tok2slot, slot2pair)
+        ctx.rules = shard.capture()
         E, C, d = y.shape
+        y = shard.constrain(y, None, None, "moe_embed")
         pairs = _masked_take(y.reshape(E * C, d), tok2slot, E * C)     # [T, K, d]
+        pairs = shard.constrain(pairs, None, None, "moe_embed")
         return (pairs * gates[..., None].to(pairs.dtype)).sum(1)
 
     @staticmethod
     def backward(ctx, g):
+        with ctx.rules():
+            return _Combine._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         y, gates, tok2slot, slot2pair = ctx.saved_tensors
         E, C, d = y.shape
         T, K = gates.shape
+        g = shard.constrain(g, None, "moe_embed")
         grad_pairs = g[:, None, :] * gates[..., None].to(g.dtype)      # [T, K, d]
+        grad_pairs = shard.constrain(grad_pairs, None, None, "moe_embed")
         grad_y = _masked_take(grad_pairs.reshape(T * K, d), slot2pair, T * K)
+        grad_y = shard.constrain(grad_y.reshape(E, C, d), None, None, "moe_embed")
         pairs = _masked_take(y.reshape(E * C, d), tok2slot, E * C)
+        pairs = shard.constrain(pairs, None, None, "moe_embed")
         grad_gates = (pairs.to(g.dtype) * g[:, None, :]).sum(-1)
         return grad_y.to(y.dtype), grad_gates.to(gates.dtype), None, None
 
@@ -202,7 +221,8 @@ def moe_ffn(cfg: ModelConfig, pl: dict, x: torch.Tensor, *,
         n = T // chunk
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         outs = []
-        for xg in x.reshape(n, chunk, 1, d):
+        # DTensor unbinds no sharded dim: a sharded chunk axis is gathered
+        for xg in shard.gather_dim(x.reshape(n, chunk, 1, d), 0):
             out_g, aux_g = _moe_ffn_inner(cfg, pl, xg, dropless=dropless)
             aux = aux + aux_g
             outs.append(out_g)
@@ -218,25 +238,38 @@ def _moe_ffn_inner(cfg: ModelConfig, pl: dict, x: torch.Tensor, *,
     xt = x.reshape(T, d)
     probs, gates, eidx = route(cfg, pl["router"], xt)
     C = expert_capacity(T, cfg, dropless=dropless)
-    tab = dispatch_tables(eidx, E, C)
+    tab = shard.replicated(dispatch_tables)(eidx, E, C)
 
-    buf = _Dispatch.apply(xt, tab.slot2tok, tab.tok2slot)         # [E, C, d]
+    xt_sh = shard.constrain(xt, None, "moe_embed")
+    buf = _Dispatch.apply(xt_sh, tab.slot2tok, tab.tok2slot)      # [E, C, d]
+    buf = shard.constrain(buf, "expert", "capacity", None)        # all-to-all
     g = F.silu(torch.bmm(buf, pl["w_gate"]).float())
     u = torch.bmm(buf, pl["w_up"])
     h = g.to(x.dtype) * u
+    h = shard.constrain(h, "expert", "capacity", "mlp")
     y = torch.bmm(h, pl["w_down"])                                # [E, C, d]
+    y = shard.constrain(y, "expert", "capacity", None)            # local GEMM out
+    y = shard.constrain(y, None, None, "moe_embed")               # all-to-all back
 
-    out = _Combine.apply(y, gates.to(y.dtype), tab.tok2slot, tab.slot2pair).reshape(B, S, d)
+    out = _Combine.apply(y, gates.to(y.dtype), tab.tok2slot, tab.slot2pair)
+    out = shard.constrain(out, None, "moe_embed").reshape(B, S, d)
     if cfg.n_shared_experts:
         sh = pl["shared"]
         out = out + swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
 
     # Switch-style load-balance loss: E * sum_e f_e * p_e
-    kept = tab.keep[tab.inv_order].to(torch.float32)
-    f = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
-        0, eidx.reshape(T * K), kept) / max(T * K, 1)
+    f = shard.replicated(_load_fractions)(eidx, tab.keep, tab.inv_order, E)
     aux = cfg.router_aux_coef * E * torch.sum(f * probs.mean(0))
     return out, aux
+
+
+def _load_fractions(eidx: torch.Tensor, keep: torch.Tensor, inv_order: torch.Tensor,
+                    n_experts: int) -> torch.Tensor:
+    """[E] f32: the share of the T*K pairs each expert kept."""
+    n = eidx.numel()
+    kept = keep[inv_order].to(torch.float32)
+    return torch.zeros(n_experts, dtype=torch.float32, device=eidx.device).scatter_add_(
+        0, eidx.reshape(n), kept) / max(n, 1)
 
 
 def moe_ffn_token(cfg: ModelConfig, pl: dict, x: torch.Tensor):
@@ -406,6 +439,7 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     recomputed in the backward pass when cfg.remat is on."""
 
     def body(h, aux, pl, moe):
+        h = shard.constrain(h, "batch", "seq", None)
         xin = rmsnorm(h, pl["ln_attn"]["w"], cfg.rmsnorm_eps)
         if cfg.use_mla:
             a, *kv = mla_attention_full(cfg, pl["attn"], xin, window=window)

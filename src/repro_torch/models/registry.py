@@ -22,7 +22,13 @@ from typing import Callable
 import torch
 
 from repro_torch.models import dense, encdec, hybrid, moe, ssm, vlm
-from repro_torch.models.common import ModelConfig, count_params, init_params as _init
+from repro_torch.models.common import (
+    ModelConfig,
+    count_params,
+    init_params as _init,
+    param_shapes as _shapes,
+    param_specs as _specs,
+)
 
 _FAMILIES = {
     "dense": dense,
@@ -46,6 +52,12 @@ class ModelAPI:
     def init_params(self, cfg: ModelConfig, generator: torch.Generator,
                     device: torch.device) -> dict:
         return _init(self.param_defs(cfg), generator, cfg.dtype, device)
+
+    def param_shapes(self, cfg: ModelConfig) -> dict:
+        return _shapes(self.param_defs(cfg), cfg.dtype)
+
+    def param_specs(self, cfg: ModelConfig, rules=None) -> dict:
+        return _specs(self.param_defs(cfg), rules)
 
     def count_params(self, cfg: ModelConfig) -> int:
         return _count_params_cached(cfg)

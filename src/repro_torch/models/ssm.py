@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import shard
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models import cache as cachelib
 from repro_torch.models.common import (
@@ -114,6 +115,23 @@ def _broadcast_groups(cfg: ModelConfig, bc: torch.Tensor):
     return tuple(t.repeat_interleave(rep, dim=-2) for t in _split_groups(cfg, bc))
 
 
+def ssd_scan(xdt, dA, B, C, *, chunk: int):
+    """Kernel B3 (`kernels.ssd_scan.ssd_scan`); on DTensors, on each
+    device's shards (`shard.local_call`): batch and heads stay as they are
+    sharded (groups follow the heads when there are several), and a
+    sharded sequence — the axis the scan runs along — is gathered first,
+    as a partitioner must gather it."""
+    if not shard.is_dtensor(xdt):
+        return _ssd.ssd_scan(xdt, dA, B, C, chunk=chunk)
+    x_pl = shard.moved(xdt.placements, {0: 0, 2: 2})
+    bc_pl = shard.moved(xdt.placements, {0: 0, 2: 2} if B.shape[2] > 1 else {0: 0})
+    fin_pl = shard.moved(xdt.placements, {0: 0, 2: 1})
+    split = [m for m, p in enumerate(x_pl) if p.is_shard()]
+    return shard.local_call(lambda x, a, b, c: _ssd.ssd_scan(x, a, b, c, chunk=chunk),
+                            xdt.device_mesh, (xdt, dA, B, C), (x_pl, x_pl, bc_pl, bc_pl),
+                            [x_pl, fin_pl], split_dims=split)
+
+
 def mamba_block_full(cfg: ModelConfig, pl: dict, x: torch.Tensor):
     """Full-sequence Mamba-2 block.  x [B,S,d] -> (y [B,S,d], final_state,
     conv_state).  The SSD runs through kernel B3, which reads B and C per
@@ -124,11 +142,12 @@ def mamba_block_full(cfg: ModelConfig, pl: dict, x: torch.Tensor):
     zg, xbc, dt_raw = _split_proj(cfg, z)
     xbc, conv_state = _causal_conv(xbc, pl["conv_w"], pl["conv_b"])
     x_ssm = xbc[..., : cfg.d_inner].reshape(Bsz, S, H, P)
+    x_ssm = shard.constrain(x_ssm, "batch", "seq", "ssm_heads", None)
     B_, C_ = _split_groups(cfg, xbc[..., cfg.d_inner:])
     A, dt = _ssm_params(cfg, pl, dt_raw)                      # [H], [B,S,H]
     dA = dt * A
     xdt = x_ssm * dt[..., None].to(x_ssm.dtype)
-    y, final = _ssd.ssd_scan(xdt, dA, B_, C_, chunk=min(cfg.ssm_chunk, S))
+    y, final = ssd_scan(xdt, dA, B_, C_, chunk=min(cfg.ssm_chunk, S))
     y = y + pl["D"].to(y.dtype)[None, None, :, None] * x_ssm
     y = y.reshape(Bsz, S, cfg.d_inner)
     y = y * F.silu(zg.float()).to(y.dtype)
@@ -174,6 +193,7 @@ def forward_full(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     layer is recomputed in the backward pass when cfg.remat is on."""
 
     def body(h, pl):
+        h = shard.constrain(h, "batch", "seq", None)
         y, final, conv = mamba_block_full(cfg, pl, rmsnorm(h, pl["ln"]["w"], cfg.rmsnorm_eps))
         return h + y, final, conv
 

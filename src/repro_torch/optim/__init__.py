@@ -38,7 +38,8 @@ def _map(fn, tree: dict, *rest: dict) -> dict:
 
 
 def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """f32 zeros shaped like p (laid out as p is, when p is a DTensor)."""
+    return torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
 
 
 def _step0(params: dict) -> torch.Tensor:

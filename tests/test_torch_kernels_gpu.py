@@ -839,3 +839,89 @@ def test_attention_scores_take_bf16_operands_without_grad(cuda):
     out = att.full_attention(qg, k, v)
     (out.float() ** 2).sum().backward()
     assert qg.grad is not None and bool(torch.isfinite(qg.grad).all())
+
+
+# B1's optional log-sum-exp output, and sequence slices merged by it (the
+# flash-decode exchange models.attention runs when the decode rules shard
+# the cache along S): the llama2-7b serve shape and head dim 256's ring.
+LSE_CASES = [(4, 32, 32, 128, 80, "bfloat16"), (4, 16, 1, 256, 2048, "bfloat16"),
+             (2, 8, 2, 64, 512, "float32")]
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+@pytest.mark.parametrize("frac", [0.3, 1.0])
+def test_decode_attention_lse_matches_plain(cuda, case, frac):
+    *shape, dtype = case
+    q, k, v = inputs(*shape, getattr(torch, dtype), seed=11)
+    pos = torch.tensor(int(frac * (shape[4] - 1)), dtype=torch.int32, device=cuda)
+    launches = kda.launches
+    out, lse = kda.decode_attention(q, k, v, pos, lse=True)
+    assert kda.launches == launches + 1
+    assert lse.shape == q.shape[:2] and lse.dtype == torch.float32
+    ref_out, ref_lse = kda.decode_attention_plain(q, k, v, pos, lse=True)
+    assert torch.equal(out, kda.decode_attention(q, k, v, pos))    # the LSE changes no output
+    close_b1(out, ref_out, TOL[dtype])
+    close(lse, ref_lse, 1e-3)
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+@pytest.mark.parametrize("n", [2, 4])
+def test_lse_merge_of_slices_matches_the_whole(cuda, case, n):
+    *shape, dtype = case
+    S = shape[4]
+    q, k, v = inputs(*shape, getattr(torch, dtype), seed=12)
+    for p in (S // 5, S - 1):
+        pos = torch.tensor(p, dtype=torch.int32, device=cuda)
+        whole = kda.decode_attention(q, k, v, pos).float()
+        L = S // n
+        outs, lses = [], []
+        for i in range(n):
+            rel = pos - i * L
+            o, s = kda.decode_attention(q, k[:, i * L:(i + 1) * L].contiguous(),
+                                        v[:, i * L:(i + 1) * L].contiguous(),
+                                        rel.clamp(0, L - 1), lse=True)
+            outs.append(o.float())
+            lses.append(torch.where(rel >= 0, s, -torch.inf))
+        lse = torch.stack(lses)
+        w = torch.exp(lse - lse.max(0).values)
+        merged = (torch.stack(outs) * w[..., None]).sum(0) / w.sum(0)[..., None]
+        assert (merged - whole).abs().max() <= 0.01 * whole.abs().max()
+
+
+@pytest.mark.parametrize("which", ["B1", "B3", "B4"])
+def test_wrappers_on_fake_cuda_tensors_launch_nothing(cuda, which):
+    """A dry run hands the wrappers fake CUDA tensors: they return the
+    plain version's shapes and dtypes without a launch, and the trace
+    counts the plain version's FLOPs (FlopCounterMode's count of it on
+    the card)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis.trace import StepCounter
+    fn, mod, args, kw = {
+        "B1": (kda.decode_attention, kda, [((4, 32, 128), torch.bfloat16),
+                                          ((4, 80, 8, 128), torch.bfloat16),
+                                          ((4, 80, 8, 128), torch.bfloat16)], {"lse": True}),
+        "B3": (kss.ssd_scan, kss, [((2, 128, 24, 64), torch.bfloat16),
+                                  ((2, 128, 24), torch.float32),
+                                  ((2, 128, 1, 128), torch.bfloat16),
+                                  ((2, 128, 1, 128), torch.bfloat16)], {"chunk": 64}),
+        "B4": (krg.rglru_scan, krg, [((2, 128, 256), torch.float32),
+                                    ((2, 128, 256), torch.float32)], {}),
+    }[which]
+    plain = {"B1": kda.decode_attention_plain, "B3": kss.ssd_scan_plain,
+             "B4": krg.rglru_scan_plain}[which]
+    extra = (41,) if which == "B1" else ()
+    real = [torch.randn(s, device=cuda).to(d) for s, d in args]
+    with FlopCounterMode(display=False) as fc:
+        want = plain(*real, *extra, **kw)
+    launches = mod.launches
+    with FakeTensorMode():
+        fake = [torch.empty(s, dtype=d, device="cuda") for s, d in args]
+        counter = StepCounter()
+        with counter:
+            out = fn(*fake, *extra, **kw)
+    assert mod.launches == launches
+    assert counter.totals.flops == fc.get_total_flops()
+    for o, w in zip(out if isinstance(out, tuple) else (out,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert o.shape == w.shape and o.dtype == w.dtype and o.device.type == "cuda"

@@ -208,7 +208,12 @@ class TestIsolation:
                                      "repro_torch.configs.shapes", "repro_torch.optim",
                                      "repro_torch.checkpoint", "repro_torch.launch.steps",
                                      "repro_torch.launch.train", "repro_torch.kernels.ref",
-                                     "repro_torch.kernels.ops"])
+                                     "repro_torch.kernels.ops", "repro_torch.shard",
+                                     "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                                     "repro_torch.launch.dryrun", "repro_torch.analysis",
+                                     "repro_torch.analysis.trace",
+                                     "repro_torch.analysis.roofline",
+                                     "repro_torch.analysis.report"])
     def test_encdec_vlm_modules_alone_load_no_jax_or_repro(self, mod):
         """The encdec and vlm ports, the input shapes, the training path's
         modules and the kernels' oracles and public names, each imported
