@@ -48,16 +48,28 @@ Phases, each of which must pass:
               simulator and call);
   6. serve    the paper's serve path through `repro_torch.launch.serve.serve`
               twice, each at full width with random bf16 weights drawn on
-              the card: characterize with the KV cache off, fit, route 24
+              the card: characterize with the KV cache off (one warm-up
+              generate over every length, then the campaign), fit, route 24
               queries, serve with the KV cache on.  First llama2-7b and
               llama2-13b (characterized up to 32 tokens), where kernel B1's
               launch count must equal the decode work done; then
-              mamba2-130m and recurrentgemma-9b (characterized up to 16
+              mamba2-130m and recurrentgemma-9b (characterized up to 32
               tokens: SCAN_CHAR_MAX_TOKENS), where every prefill must launch
               B3 once per SSM layer or B4 once per recurrent layer, and
               every decode step B1 once per attention layer;
               one KV-on generate of each outside the router makes every
-              kernel launch whatever the routing;
+              kernel launch whatever the routing.  Every engine call is
+              metered by the card's NVML energy counter
+              (`energy.meter.NvmlMeter`, one window a call, opened and
+              closed on the counter's steps); this and the serve phases
+              of 8 and 9 print Eq. 6's R² on those joules beside the R²
+              of the host model's (`WallClockMeter`'s) for the same trials,
+              each trial's power (held within [idle / 2, 1.05 x the power
+              limit]), the repeats' spread and each (τin, τout)'s first
+              trial over its later ones, and the windows' joules against
+              NVML's reading over the whole run (held within one counter
+              step a window); phase 1 prints the counter's steps at idle
+              and under load and what one read costs;
   7. outputs  reduced models on the card (through the kernels) against the
               same models on the CPU (plain versions), llama2-7b and
               recurrentgemma-9b also with float8_e4m3fn KV caches, and
@@ -178,7 +190,8 @@ Phases, each of which must pass:
               printed.
 
 Exits nonzero, printing no result, without a CUDA device, without the
-port's sources beside it, or when any phase fails.  The last line is
+port's sources beside it, or when any phase fails (an NVML counter that
+cannot be opened or read fails its phase).  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -186,7 +199,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import ctypes
 import gc
 import json
 import math
@@ -194,6 +206,7 @@ import os
 import platform
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -207,7 +220,7 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 34e12}
 SERVE_ARCHS = ["llama2-7b", "llama2-13b"]
 SERVE_CHAR_MAX_TOKENS = 32      # the llama2 path's characterization grid top
 SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
-SCAN_CHAR_MAX_TOKENS = 16       # the scan path's grid top (64 before phase 9, 32 before phase 11 (f)/(g))
+SCAN_CHAR_MAX_TOKENS = 32       # the scan path's characterization grid top
 MOE_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b"]
 MOE_CHAR_MAX_TOKENS = 16        # the MoE path's characterization grid top
 # Depth cuts at full width: mixtral-8x7b's 32 layers (47 B parameters, ~94 GB
@@ -272,22 +285,106 @@ def nvidia_smi() -> str:
     return res.stdout.strip()
 
 
-class Nvml:
-    """The card's cumulative energy counter (millijoules), read
-    through libnvidia-ml with ctypes."""
+def power_limit_w(smi: str) -> float:
+    """The power limit in `nvidia-smi`'s "name, 700.00 W" line."""
+    return float(smi.rsplit(",", 1)[1].strip().split()[0])
 
-    def __init__(self):
-        self.lib = ctypes.CDLL("libnvidia-ml.so.1")
-        check(self.lib.nvmlInit_v2() == 0, "nvmlInit failed")
-        self.handle = ctypes.c_void_p()
-        check(self.lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(self.handle)) == 0,
-              "nvmlDeviceGetHandleByIndex failed")
 
-    def millijoules(self) -> int:
-        mj = ctypes.c_ulonglong()
-        rc = self.lib.nvmlDeviceGetTotalEnergyConsumption(self.handle, ctypes.byref(mj))
-        check(rc == 0, f"nvmlDeviceGetTotalEnergyConsumption returned {rc}")
-        return mj.value
+def counter_report(torch) -> dict:
+    """The NVML energy counter the port's meter reads (`NvmlMeter`): the
+    steps it takes at idle and under a bf16 matmul load (gap in ms and
+    joules), and what one read costs.  Returns the median gap, the largest
+    step's joules and the read's microseconds."""
+    from repro_torch.energy.meter import NvmlMeter
+    from repro_torch.launch.meter_probe import counter_steps, read_cost_us
+    meter = NvmlMeter("cuda")
+    read_us = read_cost_us(meter, 100)
+    torch.cuda.synchronize()
+    idle = counter_steps(meter, 5)
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    c = torch.empty_like(a)
+    for _ in range(500):            # ~0.7 s of work queued ahead of the reads
+        torch.matmul(a, a, out=c)
+    load = counter_steps(meter, 4)
+    torch.cuda.synchronize()
+    del a, c
+    gaps = [g for g, _ in idle + load]
+    print(f"[meter] NVML energy counter (nvmlDeviceGetTotalEnergyConsumption, mJ): step "
+          f"(ms, J) at idle {idle}, under a bf16 matmul load {load}; update interval "
+          f"median {statistics.median(gaps)} ms; one read {read_us:.1f} us (median of 100)")
+    return {"step_ms": statistics.median(gaps), "step_j": max(j for _, j in idle + load),
+            "read_us": read_us}
+
+
+def idle_watts() -> float:
+    """The card's idle power now: one metered window over 0.5 s of sleep."""
+    from repro_torch.energy.meter import NvmlMeter
+    meter = NvmlMeter("cuda")
+    _, s, j = meter.measure(lambda: time.sleep(0.5))
+    return j / s
+
+
+def quartiles(xs) -> list:
+    qs = statistics.quantiles(xs, n=4, method="inclusive") if len(xs) > 1 else xs
+    return [round(q, 4) for q in qs]
+
+
+def energy_report(tag, serve_mod, out, whole, idle_w, limit_w, counter) -> None:
+    """The serve cell's energy: per characterized model Eq. 6's R² on NVML
+    joules beside the host model's and the runtime R², each trial's power
+    (within [idle / 2, 1.05 x limit]), the repeats' spread and the first
+    trial at each (τin, τout) over the later ones; then the windows' joules
+    (trials and served batches) against the NVML reading over the whole
+    run `whole` (a NvmlMeter's `last`), within one counter step a window."""
+    from repro_torch.core.characterize import fit_profile_from_trials
+    from repro_torch.energy.meter import WallClockMeter
+    n_windows, windows_j = 0, 0.0
+    for prof in out["profiles"]:
+        trials = out["trials"][prof.name]
+        modeled = fit_profile_from_trials(prof.name, prof.accuracy.a_k,
+                                          serve_mod.host_model(trials))
+        print(f"[{tag}] {prof.name}: Eq. 6 energy R2 on NVML_J={prof.energy.r_squared} "
+              f"host-model_J={modeled.energy.r_squared}; runtime R2="
+              f"{prof.runtime.r_squared} ({len(trials)} trials)")
+        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared)
+              and math.isfinite(modeled.energy.r_squared), f"{prof.name}: fit is not finite")
+        watts = [t.energy_j / t.runtime_s for t in trials]
+        print(f"[{tag}] {prof.name}: trial power W min {min(watts):.1f} median "
+              f"{statistics.median(watts):.1f} max {max(watts):.1f} (idle {idle_w:.1f}, "
+              f"limit {limit_w})")
+        check(all(idle_w / 2 <= w <= 1.05 * limit_w for w in watts),
+              f"{prof.name}: a trial's power lies outside [{idle_w / 2}, {1.05 * limit_w}] W: "
+              f"{[round(w, 1) for w in watts]}")
+        visits = collections.defaultdict(list)
+        for t in trials:
+            visits[(t.tau_in, t.tau_out)].append(t)
+        spread_j = [(max(v.energy_j for v in vs) - min(v.energy_j for v in vs))
+                    / statistics.median(v.energy_j for v in vs) for vs in visits.values()]
+        spread_s = [(max(v.runtime_s for v in vs) - min(v.runtime_s for v in vs))
+                    / statistics.median(v.runtime_s for v in vs) for vs in visits.values()]
+        first = [vs[0].runtime_s / statistics.median(v.runtime_s for v in vs[1:])
+                 for vs in visits.values()]
+        later = [vs[1].runtime_s / statistics.median(v.runtime_s for v in vs[2:])
+                 for vs in visits.values() if len(vs) > 2]
+        print(f"[{tag}] {prof.name}: repeats at a (tin, tout), (max - min) / median: "
+              f"joules median {statistics.median(spread_j):.4f}, seconds median "
+              f"{statistics.median(spread_s):.4f}; seconds of the first trial at a pair / "
+              f"median of its later ones, quartiles {quartiles(first)} over {len(first)} "
+              f"pairs; of the second / median of the later ones {quartiles(later)} over "
+              f"{len(later)} pairs")
+        n_windows += len(trials)
+        windows_j += sum(t.energy_j for t in trials)
+    for arch, t in out["totals"].items():
+        print(f"[{tag}] {arch}: queries={t['queries']} tokens={t['tokens']} "
+              f"measured_s={t['runtime_s']} NVML_J={t['energy_j']} "
+              f"host-model_J={WallClockMeter().power_w * t['runtime_s']}")
+        n_windows += t["batches"]
+        windows_j += t["energy_j"]
+    bound = whole["window_j"] + n_windows * counter["step_j"]
+    print(f"[{tag}] NVML J over the whole run={whole['window_j']}; its {n_windows} trial and "
+          f"served-batch windows sum to {windows_j} J, {windows_j / whole['window_j']:.4f} "
+          f"of it (limit: + {n_windows} counter steps of {counter['step_j']} J)")
+    check(windows_j <= bound, f"{tag}: the windows' joules {windows_j} exceed {bound}")
 
 
 # ---------------------------------------------------------------------------
@@ -551,36 +648,21 @@ def expected_decode_launches(serve_mod, out, get_config=None) -> int:
     return n
 
 
-def run_serve(torch, kda, serve_mod) -> tuple[int, list]:
+def run_serve(torch, kda, serve_mod, limit_w, counter) -> tuple[int, list]:
     """Phase 6's llama2 serve.  Returns B1's launches over it and the
     llama2-7b/13b profiles fitted from the card's runs."""
-    try:
-        nvml = Nvml()
-    except (OSError, PhaseError) as e:
-        nvml = None
-        print(f"[serve] NVML energy: not measured ({e})")
+    from repro_torch.energy.meter import NvmlMeter
+    idle_w = idle_watts()
     torch.cuda.reset_peak_memory_stats()
     kda.launches = 0
-    e0 = nvml.millijoules() if nvml else None
-    t0 = time.perf_counter()
-    out = serve_mod.serve(SERVE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
-                          char_max_tokens=SERVE_CHAR_MAX_TOKENS, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    whole = NvmlMeter("cuda")
+    out, wall, _ = whole.measure(lambda: serve_mod.serve(
+        SERVE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
+        char_max_tokens=SERVE_CHAR_MAX_TOKENS, device="cuda"))
     launches = kda.launches
-    e1 = nvml.millijoules() if nvml else None
 
-    for prof in out["profiles"]:
-        print(f"[serve] {prof.name}: energy R2={prof.energy.r_squared} "
-              f"runtime R2={prof.runtime.r_squared}")
-        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared),
-              f"{prof.name}: fit is not finite")
-    for arch, t in out["totals"].items():
-        print(f"[serve] {arch}: queries={t['queries']} tokens={t['tokens']} "
-              f"measured_s={t['runtime_s']} host-model_J={t['energy_j']}")
-    print(f"[serve] serve() wall s={wall}")
-    if nvml:
-        print(f"[serve] NVML J over serve() (characterize + serve)={(e1 - e0) / 1e3}")
+    energy_report("serve", serve_mod, out, whole.last, idle_w, limit_w, counter)
+    print(f"[serve] serve() wall s={wall} (characterized up to {SERVE_CHAR_MAX_TOKENS} tokens)")
     print(f"[serve] max_memory_allocated GiB={torch.cuda.max_memory_allocated() / 2**30}")
     expected = expected_decode_launches(serve_mod, out)
     print(f"[serve] B1 launches={launches} expected={expected} (layers x max_new over batches)")
@@ -1430,31 +1512,25 @@ def per_call_launches(cfg, kind) -> dict:
     return {"B3": 0, "B4": 0, "B1": hybrid.pattern_counts(cfg)[2] if is_hybrid else 0}
 
 
-def run_scan_serve(torch, counters, serve_mod) -> dict:
+def run_scan_serve(torch, counters, serve_mod, limit_w, counter) -> dict:
     """serve() of the ssm + hybrid fleet, then one KV-on generate of each
     model outside the router.  Every engine call's kernel launches must be
     its layers' count.  Returns kernel -> launches over the whole run."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.energy.meter import NvmlMeter
     from repro_torch.serving import InferenceEngine
-    try:
-        nvml = Nvml()
-    except (OSError, PhaseError) as e:
-        nvml = None
-        print(f"[scan-serve] NVML energy: not measured ({e})")
     gc.collect()
     torch.cuda.empty_cache()
+    idle_w = idle_watts()
     torch.cuda.reset_peak_memory_stats()
     for m in counters.values():
         m.launches = 0
     with EngineCalls(InferenceEngine, counters) as calls:
-        e0 = nvml.millijoules() if nvml else None
-        t0 = time.perf_counter()
-        out = serve_mod.serve(SCAN_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
-                              char_max_tokens=SCAN_CHAR_MAX_TOKENS, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        e1 = nvml.millijoules() if nvml else None
+        whole = NvmlMeter("cuda")
+        out, wall, _ = whole.measure(lambda: serve_mod.serve(
+            SCAN_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
+            char_max_tokens=SCAN_CHAR_MAX_TOKENS, device="cuda"))
         for arch in SCAN_ARCHS:      # every kernel, whatever the routing
             eng = serve_mod.build_engine(arch, kv_cache=True, device="cuda")
             toks = np.random.default_rng(3).integers(1, eng.cfg.vocab_size, (4, 40))
@@ -1464,18 +1540,9 @@ def run_scan_serve(torch, counters, serve_mod) -> dict:
         torch.cuda.synchronize()
     launches = {k: m.launches for k, m in counters.items()}
 
-    for prof in out["profiles"]:
-        print(f"[scan-serve] {prof.name}: energy R2={prof.energy.r_squared} "
-              f"runtime R2={prof.runtime.r_squared}")
-        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared),
-              f"{prof.name}: fit is not finite")
-    for arch, t in out["totals"].items():
-        print(f"[scan-serve] {arch}: queries={t['queries']} tokens={t['tokens']} "
-              f"measured_s={t['runtime_s']} host-model_J={t['energy_j']}")
+    energy_report("scan-serve", serve_mod, out, whole.last, idle_w, limit_w, counter)
     print(f"[scan-serve] serve() wall s={wall} "
           f"(characterized up to {SCAN_CHAR_MAX_TOKENS} tokens)")
-    if nvml:
-        print(f"[scan-serve] NVML J over serve() (characterize + serve)={(e1 - e0) / 1e3}")
     print(f"[scan-serve] max_memory_allocated GiB={torch.cuda.max_memory_allocated() / 2**30}")
     n_routed = sum(len(rs) for rs in out["plan"].per_model.values())
     check(n_routed == SERVE_QUERIES, f"plan routed {n_routed} of {SERVE_QUERIES} queries")
@@ -1560,34 +1627,28 @@ class DepthCut:
         self.mod.get_config = self.orig
 
 
-def run_moe_serve(torch, kda, serve_mod) -> int:
+def run_moe_serve(torch, kda, serve_mod, limit_w, counter) -> int:
     """serve() of granite-moe-3b-a800m and mixtral-8x7b (DEPTH_CUTS), then
     one KV-on generate of each outside the router.  Every engine decode
     call must launch B1 once per layer and every prefill never; over the
     run B1's launches must equal the served batches' layers x max_new plus
     the generates'.  Returns B1's launches over the run."""
     import numpy as np
+    from repro_torch.energy.meter import NvmlMeter
     from repro_torch.serving import InferenceEngine
-    try:
-        nvml = Nvml()
-    except (OSError, PhaseError) as e:
-        nvml = None
-        print(f"[moe-serve] NVML energy: not measured ({e})")
     gc.collect()
     torch.cuda.empty_cache()
+    idle_w = idle_watts()
     torch.cuda.reset_peak_memory_stats()
     cut = DepthCut(serve_mod)
     for arch in MOE_ARCHS:
         print(f"[moe-serve] {cut.describe(arch)}")
     with cut, EngineCalls(InferenceEngine, {"B1": kda}) as calls:
         kda.launches = 0
-        e0 = nvml.millijoules() if nvml else None
-        t0 = time.perf_counter()
-        out = serve_mod.serve(MOE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
-                              char_max_tokens=MOE_CHAR_MAX_TOKENS, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        e1 = nvml.millijoules() if nvml else None
+        whole = NvmlMeter("cuda")
+        out, wall, _ = whole.measure(lambda: serve_mod.serve(
+            MOE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
+            char_max_tokens=MOE_CHAR_MAX_TOKENS, device="cuda"))
         peak = torch.cuda.max_memory_allocated()
         expected = expected_decode_launches(serve_mod, out, cut.lookup)
         for arch in MOE_ARCHS:      # B1 launches whatever the routing
@@ -1600,17 +1661,8 @@ def run_moe_serve(torch, kda, serve_mod) -> int:
         torch.cuda.synchronize()
         launches = kda.launches
 
-    for prof in out["profiles"]:
-        print(f"[moe-serve] {prof.name}: energy R2={prof.energy.r_squared} "
-              f"runtime R2={prof.runtime.r_squared}")
-        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared),
-              f"{prof.name}: fit is not finite")
-    for arch, t in out["totals"].items():
-        print(f"[moe-serve] {arch}: queries={t['queries']} tokens={t['tokens']} "
-              f"measured_s={t['runtime_s']} host-model_J={t['energy_j']}")
+    energy_report("moe-serve", serve_mod, out, whole.last, idle_w, limit_w, counter)
     print(f"[moe-serve] serve() wall s={wall} (characterized up to {MOE_CHAR_MAX_TOKENS} tokens)")
-    if nvml:
-        print(f"[moe-serve] NVML J over serve() (characterize + serve)={(e1 - e0) / 1e3}")
     print(f"[moe-serve] max_memory_allocated GiB over serve()={peak / 2**30}")
     n_routed = sum(len(rs) for rs in out["plan"].per_model.values())
     check(n_routed == SERVE_QUERIES, f"plan routed {n_routed} of {SERVE_QUERIES} queries")
@@ -1721,43 +1773,36 @@ def b1_per_call(cfg, kind) -> int:
     return 2 * cfg.dec_layers if cfg.family == "encdec" else cfg.n_layers
 
 
-def characterize_with_frontends(serve_mod, arch):
-    """`serve_mod.characterize_fleet`'s campaign for one encdec or vlm model:
-    KV off, batch 2, up to ENCDEC_VLM_CHAR_MAX_TOKENS, each (τin, τout)'s
-    first call left out, through `measure_fn` (zero frames or patches)."""
-    from repro_torch.core.characterize import fit_profile_from_trials, run_campaign
+def characterize_with_frontends(serve_mod, arch) -> list:
+    """`serve_mod.characterize`'s campaign for one encdec or vlm model: KV
+    off, batch 2, up to ENCDEC_VLM_CHAR_MAX_TOKENS, after one warm-up over
+    every length (`serve_mod.warm_up`), through `measure_fn` (zero frames
+    or patches).  Returns the trials."""
+    from repro_torch.core.characterize import run_campaign
     from repro_torch.serving.engine import measure_fn
     engine = serve_mod.build_engine(arch, kv_cache=False, device="cuda")
+    serve_mod.warm_up(engine, 2, ENCDEC_VLM_CHAR_MAX_TOKENS)
     measure = measure_fn(lambda: engine, 2, engine.cfg.vocab_size)
-    warmed = set()
-
-    def warm_measure(tin, tout):
-        if (tin, tout) not in warmed:
-            warmed.add((tin, tout))
-            measure(tin, tout)
-        return measure(tin, tout)
-
-    trials = run_campaign(arch, warm_measure,
-                          serve_mod.campaign_settings(ENCDEC_VLM_CHAR_MAX_TOKENS))
-    return fit_profile_from_trials(arch, serve_mod.accuracy_ak(arch), trials)
+    return run_campaign(arch, measure, serve_mod.campaign_settings(ENCDEC_VLM_CHAR_MAX_TOKENS))
 
 
 def serve_with_frontends(torch, serve_mod, archs, *, seed=0) -> dict:
     """`serve_mod.serve` for models whose prefill also takes frames or
     patches: characterize, fit, route SERVE_QUERIES Alpaca-like queries at
     zeta 0.5, and serve each model's batches (batch 4, KV on) with seeded
-    random frames/patches.  Returns {"plan", "totals", "profiles"}."""
+    random frames/patches.  Returns {"plan", "totals", "profiles", "trials"}."""
     import numpy as np
     from repro_torch.data import alpaca_like_workload, token_batches
     from repro_torch.data.workloads import WorkloadSpec
     from repro_torch.serving import EnergyAwareRouter
     from repro_torch.serving.requests import Request
 
-    profiles = []
+    trials = {}
     for arch in archs:
-        profiles.append(characterize_with_frontends(serve_mod, arch))
+        trials[arch] = characterize_with_frontends(serve_mod, arch)
         gc.collect()
         torch.cuda.empty_cache()
+    profiles = [serve_mod.fit_and_report(arch, trials[arch]) for arch in archs]
     router = EnergyAwareRouter(profiles, zeta=0.5)
     queries = alpaca_like_workload(WorkloadSpec(n_queries=SERVE_QUERIES,
                                                 **serve_mod.SERVE_WORKLOAD))
@@ -1783,23 +1828,19 @@ def serve_with_frontends(torch, serve_mod, archs, *, seed=0) -> dict:
             n_tok += int(b["lengths"].sum()) + max_new * 4
         totals[arch] = {"queries": len(rs), "energy_j": e_j, "runtime_s": t_s,
                         "tokens": n_tok, "batches": len(batches)}
-    return {"plan": plan, "totals": totals, "profiles": profiles}
+    return {"plan": plan, "totals": totals, "profiles": profiles, "trials": trials}
 
 
-def run_encdec_vlm_serve(torch, kda, serve_mod) -> dict:
+def run_encdec_vlm_serve(torch, kda, serve_mod, limit_w, counter) -> dict:
     """serve_with_frontends over ENCDEC_VLM_ARCHS (DEPTH_CUTS in force),
     then one KV-on generate of each outside the router.  Every engine
     call's B1 launches must be `b1_per_call`'s.  Returns arch -> B1's
     launches in its engines' calls."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.energy.meter import NvmlMeter
     from repro_torch.models import get_api
     from repro_torch.serving import InferenceEngine
-    try:
-        nvml = Nvml()
-    except (OSError, PhaseError) as e:
-        nvml = None
-        print(f"[encdec-vlm] NVML energy: not measured ({e})")
     cut = DepthCut(serve_mod)
     for arch in ENCDEC_VLM_ARCHS:
         cfg, full = cut.lookup(arch), get_config(arch)
@@ -1812,15 +1853,13 @@ def run_encdec_vlm_serve(torch, kda, serve_mod) -> dict:
               f"{get_api(cfg).count_params(cfg) / 1e9:.3f} B parameters ({cfg.param_dtype})")
     gc.collect()
     torch.cuda.empty_cache()
+    idle_w = idle_watts()
     torch.cuda.reset_peak_memory_stats()
     with cut, EngineCalls(InferenceEngine, {"B1": kda}) as calls:
         kda.launches = 0
-        e0 = nvml.millijoules() if nvml else None
-        t0 = time.perf_counter()
-        out = serve_with_frontends(torch, serve_mod, ENCDEC_VLM_ARCHS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        e1 = nvml.millijoules() if nvml else None
+        whole = NvmlMeter("cuda")
+        out, wall, _ = whole.measure(
+            lambda: serve_with_frontends(torch, serve_mod, ENCDEC_VLM_ARCHS))
         peak = torch.cuda.max_memory_allocated()
         gc.collect()
         torch.cuda.empty_cache()
@@ -1834,18 +1873,9 @@ def run_encdec_vlm_serve(torch, kda, serve_mod) -> dict:
         torch.cuda.synchronize()
         launches = kda.launches
 
-    for prof in out["profiles"]:
-        print(f"[encdec-vlm] {prof.name}: energy R2={prof.energy.r_squared} "
-              f"runtime R2={prof.runtime.r_squared}")
-        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared),
-              f"{prof.name}: fit is not finite")
-    for arch, t in out["totals"].items():
-        print(f"[encdec-vlm] {arch}: queries={t['queries']} batches={t['batches']} "
-              f"tokens={t['tokens']} measured_s={t['runtime_s']} host-model_J={t['energy_j']}")
+    energy_report("encdec-vlm", serve_mod, out, whole.last, idle_w, limit_w, counter)
     print(f"[encdec-vlm] serve wall s={wall} (characterize + fit + route + serve; "
           f"characterized up to {ENCDEC_VLM_CHAR_MAX_TOKENS} tokens)")
-    if nvml:
-        print(f"[encdec-vlm] NVML J over the serve wall={(e1 - e0) / 1e3}")
     print(f"[encdec-vlm] max_memory_allocated GiB over the serve wall={peak / 2**30}")
     n_routed = sum(len(rs) for rs in out["plan"].per_model.values())
     check(n_routed == SERVE_QUERIES, f"plan routed {n_routed} of {SERVE_QUERIES} queries")
@@ -2382,12 +2412,8 @@ def online_router_live(torch, kda, serve_mod, card_profiles) -> None:
     import numpy as np
     from repro_torch.cluster import ZetaOnlinePolicy
     from repro_torch.data import WorkloadSpec, alpaca_like_workload, token_batches
+    from repro_torch.energy.meter import NvmlMeter
     from repro_torch.serving import OnlineRouter, Request
-    try:
-        nvml = Nvml()
-    except (OSError, PhaseError) as e:
-        nvml = None
-        print(f"[cluster] NVML energy: not measured ({e})")
     gc.collect()
     torch.cuda.empty_cache()
     engines = {a: serve_mod.build_engine(a, kv_cache=True, device="cuda")
@@ -2396,32 +2422,34 @@ def online_router_live(torch, kda, serve_mod, card_profiles) -> None:
     queries = alpaca_like_workload(WorkloadSpec(n_queries=SERVE_QUERIES,
                                                 **serve_mod.SERVE_WORKLOAD))
     split = collections.Counter()
+    served_j = []
     expected = 0
-    torch.cuda.synchronize()
+
+    def route_and_serve():
+        nonlocal expected
+        for i, (tin, tout) in enumerate(queries):
+            req = Request(i, np.zeros(tin, np.int32), tout)
+            model = router.route_one(req)
+            eng = engines[model]
+            batch = next(token_batches([(tin, tout)], 1, eng.cfg.vocab_size, seed=i))
+            gen, stats = eng.generate({"tokens": batch["tokens"]}, tout)
+            check(gen.shape == (1, tout), f"request {i}: generate returned {gen.shape}")
+            router.complete(req)
+            split[model] += 1
+            served_j.append(stats.energy_j)
+            expected += eng.cfg.n_layers * tout
+
     kda.launches = 0
-    e0 = nvml.millijoules() if nvml else None
-    t0 = time.perf_counter()
-    for i, (tin, tout) in enumerate(queries):
-        req = Request(i, np.zeros(tin, np.int32), tout)
-        model = router.route_one(req)
-        eng = engines[model]
-        batch = next(token_batches([(tin, tout)], 1, eng.cfg.vocab_size, seed=i))
-        gen, _ = eng.generate({"tokens": batch["tokens"]}, tout)
-        check(gen.shape == (1, tout), f"request {i}: generate returned {gen.shape}")
-        router.complete(req)
-        split[model] += 1
-        expected += eng.cfg.n_layers * tout
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    whole = NvmlMeter("cuda")
+    _, wall, _ = whole.measure(route_and_serve)
     launches = kda.launches
-    e1 = nvml.millijoules() if nvml else None
     del engines
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[cluster] online router: {sum(split.values())} of {SERVE_QUERIES} routed and "
           f"served, split={dict(split)}, wall s={wall}")
-    if nvml:
-        print(f"[cluster] online router: NVML J over route + serve={(e1 - e0) / 1e3}")
+    print(f"[cluster] online router: NVML J over route + serve={whole.last['window_j']}; "
+          f"the {len(served_j)} requests' windows {sum(served_j)} J")
     print(f"[cluster] online router: B1 launches={launches} expected={expected} "
           f"(layers x max_new over the served requests)")
     check(sum(split.values()) == SERVE_QUERIES, "the online router lost requests")
@@ -2507,14 +2535,15 @@ def _train_breakdown(prof, label, shares=None):
     return busy
 
 
-def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None,
+def train_cell(torch, label, cfg, batch, seq, steps, meter, *, probe=None,
                shares=None) -> dict:
     """`steps` AdamW steps of `cfg` at full width on the card through
     `build_train_step`, random bf16 weights drawn on the card (seed 0).
     Step 1 warms up; step 2 runs under the profiler (its device busy ms
     and where it goes); steps 3 on run without it, and tokens/s, joules
     and the model-FLOP share are taken from their walls.  Prints per step
-    the loss, wall ms and NVML J, then the peak of max_memory_allocated.
+    the loss, wall ms and NVML J (`meter`, a NvmlMeter), then the peak of
+    max_memory_allocated.
     The model FLOPs are 6 N T, N the parameters a token touches (MoE: the
     active ones) less the input embedding (a lookup, no matrix FLOPs; the
     share with it is printed beside).  `probe(opt)`, if given, is a
@@ -2557,13 +2586,11 @@ def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None,
                 watch.profiled = i == 1
             if i == 1:
                 prof.start()
-            e0 = nvml.millijoules() if nvml else None
-            t0 = time.perf_counter()
-            loss, params, state = step_fn(params, state, b)
-            losses.append(float(loss))          # synchronizes
-            walls.append((time.perf_counter() - t0) * 1e3)
-            if nvml:
-                joules.append((nvml.millijoules() - e0) / 1e3)
+            (loss, params, state), dt, j = meter.measure(
+                lambda p=params, st=state, b=b: step_fn(p, st, b))
+            losses.append(float(loss))
+            walls.append(dt * 1e3)
+            joules.append(j)
             if i == 1:
                 prof.stop()
             if watch:
@@ -2580,9 +2607,8 @@ def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None,
                    "under the profiler: device busy not measured (it saw no device time)")
         else:
             dev = "warm-up, not profiled" if i == 0 else "not profiled"
-        energy = f", NVML J {joules[i]:.1f}" if nvml else ""
         print(f"[train] {label} step {i + 1}: loss {losses[i]:.5f}, wall {walls[i]:.3f} ms"
-              f"{energy}, {dev}")
+              f", NVML J {joules[i]:.1f}, {dev}")
     flops = 6 * (n_active - n_embed) * tokens
     print(f"[train] {label}: steps 3-{steps} (not profiled): {step_s * 1e3:.3f} ms "
           f"a step, {tokens / step_s:.1f} tokens/s, model-FLOP share "
@@ -2591,9 +2617,8 @@ def train_cell(torch, label, cfg, batch, seq, steps, nvml, *, probe=None,
           f"{6 * n_active * tokens / (step_s * BF16_DENSE_PEAK):.4f}; over "
           f"{BF16_DENSE_PEAK:.4g} FLOP/s, the H100 SXM's dense bf16 peak; this card: "
           f"{nvidia_smi()})")
-    if nvml:
-        print(f"[train] {label}: NVML J a step (steps 3-{steps}) "
-              f"{sum(joules[2:]) / (steps - 2):.1f}")
+    print(f"[train] {label}: NVML J a step (steps 3-{steps}) "
+          f"{sum(joules[2:]) / (steps - 2):.1f}")
     print(f"[train] {label}: max_memory_allocated GiB={peak / 2**30}")
     check(all(math.isfinite(x) for x in losses), f"{label}: a loss is not finite: {losses}")
     check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
@@ -2708,7 +2733,7 @@ def scan_layers(cfg) -> int:
     return cfg.n_layers if cfg.family == "ssm" else hybrid.n_rec_layers(cfg)
 
 
-def train_scan_cell(torch, cfg, kernel, mod, batch, seq, steps, nvml, full_layers) -> tuple:
+def train_scan_cell(torch, cfg, kernel, mod, batch, seq, steps, meter, full_layers) -> tuple:
     """(f)/(g): `train_cell` of mamba2 (B3) or recurrentgemma (B4) with the
     scan's launches held each step and its kernels' share of the profiled
     step.  Returns (forward, backward) launches over the cell."""
@@ -2716,7 +2741,7 @@ def train_scan_cell(torch, cfg, kernel, mod, batch, seq, steps, nvml, full_layer
     layers = scan_layers(cfg)
     label = cfg.name if cfg.n_layers == full_layers else (
         f"{cfg.name} ({cfg.n_layers} of {full_layers} layers)")
-    out = train_cell(torch, label, cfg, batch, seq, steps, nvml,
+    out = train_cell(torch, label, cfg, batch, seq, steps, meter,
                      probe=lambda opt: ScanProbe(mod, kernel, layers, 1 + cfg.remat, batch // mb),
                      shares={k: v for k, v in SCAN_KERNEL_KEYS.items() if k.startswith(kernel)})
     per_step = out["probe"].per_step
@@ -2914,11 +2939,8 @@ def run_train(torch, kernel_mods) -> dict:
     B4's forward and backward launches must equal what the layers need.
     Returns kernel -> (forward, backward) launches over the phase."""
     from repro_torch.configs import get_config
-    try:
-        nvml = Nvml()
-    except (OSError, PhaseError) as e:
-        nvml = None
-        print(f"[train] NVML energy: not measured ({e})")
+    from repro_torch.energy.meter import NvmlMeter
+    meter = NvmlMeter("cuda")
     for mod in kernel_mods.values():
         mod.launches = 0
     scan_mods = {"B3": kernel_mods["B3"], "B4": kernel_mods["B4"]}
@@ -2927,14 +2949,14 @@ def run_train(torch, kernel_mods) -> dict:
     want = collections.Counter()
     t0 = time.perf_counter()
     arch, batch, seq, steps = TRAIN_DENSE
-    train_cell(torch, arch, get_config(arch), batch, seq, steps, nvml)
+    train_cell(torch, arch, get_config(arch), batch, seq, steps, meter)
     print(f"[train] (a) {arch} s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     arch, batch, seq, steps = TRAIN_MOE
     cfg = get_config(arch)
     check(not cfg.microbatch or batch <= cfg.microbatch,
           f"{arch}: batch {batch} is above microbatch {cfg.microbatch}")
-    out = train_cell(torch, arch, cfg, batch, seq, steps, nvml,
+    out = train_cell(torch, arch, cfg, batch, seq, steps, meter,
                      probe=lambda opt: MoEProbe(torch, cfg, opt))
     watch = out["probe"]
     scatter = {op: n for op, n in watch.ops.items()
@@ -2972,7 +2994,7 @@ def run_train(torch, kernel_mods) -> dict:
         full = cfg.n_layers
         cfg = cfg.replace(n_layers=TRAIN_DEPTH_CUTS.get(arch, full))
         fwd, bwd = train_scan_cell(torch, cfg, kernel, scan_mods[kernel], batch, seq, steps,
-                                   nvml, full)
+                                   meter, full)
         want.update({f"{kernel} forward": fwd, f"{kernel} backward": bwd})
         print(f"[train] ({tag}) {arch} s={time.perf_counter() - t0}")
     launches = {name: mod.launches for name, mod in kernel_mods.items()}
@@ -3401,6 +3423,8 @@ def run_phases(torch, kids, kind, count, smi) -> int:
     from repro_torch.kernels import ssd_scan as kss
     from repro_torch.launch import serve as serve_mod
 
+    counter = counter_report(torch)
+    limit_w = power_limit_w(smi)
     t0 = time.perf_counter()
     reports = _build.build()
     print(f"[build] {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
@@ -3408,38 +3432,44 @@ def run_phases(torch, kids, kind, count, smi) -> int:
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    print(f"[phase] build s={time.perf_counter() - t0}")
 
+    t0 = time.perf_counter()
     shapes = decode_shapes(torch, serve_mod)
     errs = check_decode(torch, kda, shapes)
     scan_errs = check_scans(torch, kss, krg)
     bwd_errs = check_scan_backwards(torch, kss, krg, kref)
     cost_errs = check_cost_batch(torch, kcb)
+    print(f"[phase] kernel checks s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
     timing = time_decode(torch, kda, shapes)
     timing.update(time_scans(torch, kss, krg))
     timing.update(time_scan_backwards(torch, kss, krg))
     timing.update(time_cost_batch(torch, kcb))
     time_simulate_batch(torch, kcb)
+    print(f"[phase] kernel timing s={time.perf_counter() - t0}")
     kids.update(start_children())
     t0 = time.perf_counter()
     analytic_launches = run_analytic(torch, kcb)
     print(f"[phase] analytic path s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    launches, card_profiles = run_serve(torch, kda, serve_mod)
+    launches, card_profiles = run_serve(torch, kda, serve_mod, limit_w, counter)
     fp8_launches = check_outputs(torch, kda, serve_mod)
     serve_walls = {"llama2": time.perf_counter() - t0}
     print(f"[phase] llama2 path (serve + outputs) s={serve_walls['llama2']}")
     t0 = time.perf_counter()
-    scan_launches = run_scan_serve(torch, {"B3": kss, "B4": krg, "B1": kda}, serve_mod)
+    scan_launches = run_scan_serve(torch, {"B3": kss, "B4": krg, "B1": kda}, serve_mod,
+                                   limit_w, counter)
     check_scan_outputs(torch, serve_mod)
     serve_walls["scan"] = time.perf_counter() - t0
     print(f"[phase] mamba2 + recurrentgemma path (serve + outputs) s={serve_walls['scan']}")
     t0 = time.perf_counter()
-    moe_launches = run_moe_serve(torch, kda, serve_mod)
+    moe_launches = run_moe_serve(torch, kda, serve_mod, limit_w, counter)
     check_moe_outputs(torch, kda, serve_mod)
     serve_walls["moe"] = time.perf_counter() - t0
     print(f"[phase] MoE path (serve + outputs) s={serve_walls['moe']}")
     t0 = time.perf_counter()
-    ev_launches = run_encdec_vlm_serve(torch, kda, serve_mod)
+    ev_launches = run_encdec_vlm_serve(torch, kda, serve_mod, limit_w, counter)
     check_encdec_vlm_outputs(torch, kda, serve_mod)
     serve_walls["encdec_vlm"] = time.perf_counter() - t0
     print(f"[phase] encdec + vlm path (serve + outputs) s={serve_walls['encdec_vlm']}")
@@ -3452,8 +3482,10 @@ def run_phases(torch, kids, kind, count, smi) -> int:
     print(f"[phase] training (qwen3-1.7b, granite-moe-3b-a800m, resume, reduced, CLI, "
           f"mamba2-130m, recurrentgemma-9b) "
           f"s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
     real = run_sharded(torch, kda, shapes)
     join_children(kids, real, serve_walls)
+    print(f"[phase] sharding and the dry run's children s={time.perf_counter() - t0}")
 
     def entry(name, source, replaces, n, err, shape):
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
@@ -3496,6 +3528,7 @@ def run_phases(torch, kids, kind, count, smi) -> int:
         entry("rglru_scan backward (B4)", "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:53",
               train_scans["B4"][1], bwd_errs["B4 bwd train float32 abs"], "B4 bwd train"),
     ]
+    print(f"[phase] total wall s={time.perf_counter() - T_START}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

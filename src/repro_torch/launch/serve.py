@@ -8,8 +8,10 @@
 
 Port of `repro.launch.serve`:
 
-1. Characterize each hosted model by REAL execution (wall-clock metering,
-   KV cache disabled — the paper's measurement mode).
+1. Characterize each hosted model by REAL execution (KV cache disabled —
+   the paper's measurement mode), each engine call metered: on CUDA by the
+   card's NVML energy counter (`energy.meter.NvmlMeter`, one window a
+   call), on the CPU by wall clock x the modeled host power.
 2. Fit the per-model e_K / r_K workload models (Eq. 6/7).
 3. Route an Alpaca-like workload with the offline scheduler at the given
    zeta and serve every batch through the real engines (KV cache ON — the
@@ -35,6 +37,7 @@ the config's dtype.  Runs on CUDA unless `device="cpu"` is passed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -48,24 +51,29 @@ from repro_torch.core.characterize import (
 )
 from repro_torch.data import alpaca_like_workload, token_batches
 from repro_torch.data.workloads import WorkloadSpec
-from repro_torch.energy.meter import WallClockMeter
+from repro_torch.energy.meter import NvmlMeter, WallClockMeter
 from repro_torch.models import get_api
 from repro_torch.serving import EnergyAwareRouter, InferenceEngine
+from repro_torch.serving.engine import frontend_inputs
 from repro_torch.serving.requests import Request
 
 # the workload `serve` routes: Alpaca-like lengths, cut to a short run
 SERVE_WORKLOAD = dict(max_in=48, max_out=32, in_log_mean=2.8, out_log_mean=2.5)
 SERVE_BUCKET = 16
+WARMUP_SEED = 1             # the warm-up's tokens; the campaign's rng is seeded 0
 
 
 def build_engine(arch: str, *, kv_cache: bool, seed: int = 0,
                  device: str | torch.device = "cuda") -> InferenceEngine:
+    """The engine of `arch` with seeded random weights, metered by the
+    card's NVML counter on CUDA and by `WallClockMeter` on the CPU."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     api = get_api(cfg)
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    meter = NvmlMeter(dev) if dev.type == "cuda" else WallClockMeter()
     return InferenceEngine(cfg, params, kv_cache=kv_cache,
-                           meter=WallClockMeter(), bucket=SERVE_BUCKET, device=dev)
+                           meter=meter, bucket=SERVE_BUCKET, device=dev)
 
 
 def campaign_settings(max_tokens: int) -> CampaignSettings:
@@ -83,43 +91,68 @@ def accuracy_ak(arch: str) -> float:
     return TABLE1.get(base, {"a_k": get_config(base).accuracy_ak})["a_k"]
 
 
+def warm_up(engine: InferenceEngine, batch: int, max_tokens: int) -> None:
+    """One KV-off generate from 8 tokens to 8 + 2 `max_tokens`: every
+    sequence length a campaign up to `max_tokens` runs, run once before its
+    first trial (the reference warms each (τin, τout) to keep XLA's
+    compiles out of the measured energy; eager PyTorch compiles nothing per
+    shape).  Its tokens come from their own generator, so the campaign's
+    draws stay the reference's."""
+    toks = np.random.default_rng(WARMUP_SEED).integers(
+        1, engine.cfg.vocab_size, (batch, 8)).astype(np.int32)
+    engine.generate({"tokens": toks, **frontend_inputs(engine.cfg, batch)}, 2 * max_tokens)
+
+
+def host_model(trials: list) -> list:
+    """The same trials charged as `WallClockMeter` charges: the modeled
+    host power x each trial's seconds."""
+    power = WallClockMeter().power_w
+    return [dataclasses.replace(t, energy_j=power * t.runtime_s) for t in trials]
+
+
+def characterize(arch: str, *, batch: int = 2, max_tokens: int = 64,
+                 device: str | torch.device = "cuda") -> list:
+    """The KV-off campaign of one model up to `max_tokens`: its trials."""
+    engine = build_engine(arch, kv_cache=False, device=device)
+    warm_up(engine, batch, max_tokens)
+    rng = np.random.default_rng(0)
+
+    def measure(tin, tout):
+        toks = rng.integers(1, engine.cfg.vocab_size, (batch, tin)).astype(np.int32)
+        _, stats = engine.generate({"tokens": toks}, tout)
+        return stats.energy_j, stats.runtime_s
+
+    return run_campaign(arch, measure, campaign_settings(max_tokens))
+
+
+def fit_and_report(arch: str, trials: list):
+    """Eq. 6/7 fitted to the trials' metered joules and seconds; prints
+    R² beside that of the host model's joules for the same trials."""
+    a_k = accuracy_ak(arch)
+    prof = fit_profile_from_trials(arch, a_k, trials)
+    modeled = fit_profile_from_trials(arch, a_k, host_model(trials))
+    print(f"{arch}: energy R2={prof.energy.r_squared:.3f} "
+          f"runtime R2={prof.runtime.r_squared:.3f} "
+          f"(host-model energy R2={modeled.energy.r_squared:.3f})")
+    return prof
+
+
 def characterize_fleet(archs: list[str], *, batch: int = 2, max_tokens: int = 64,
                        device: str | torch.device = "cuda") -> list:
     """Real-execution campaign -> fitted profiles.  One model's engine is
     alive at a time."""
-    settings = campaign_settings(max_tokens)
-    profiles = []
-    for arch in archs:
-        a_k = accuracy_ak(arch)
-        engine = build_engine(arch, kv_cache=False, device=device)
-        rng = np.random.default_rng(0)
-
-        warmed: set = set()
-
-        def measure(tin, tout, engine=engine, rng=rng, warmed=warmed):
-            toks = rng.integers(1, engine.cfg.vocab_size,
-                                (batch, tin)).astype(np.int32)
-            if (tin, tout) not in warmed:   # exclude first-call set-up from
-                warmed.add((tin, tout))     # the measured energy (paper §3:
-                engine.generate({"tokens": toks}, tout)  # no warm-start bias)
-            _, stats = engine.generate({"tokens": toks}, tout)
-            return stats.energy_j, stats.runtime_s
-
-        trials = run_campaign(arch, measure, settings)
-        del engine, measure
-        prof = fit_profile_from_trials(arch, a_k, trials)
-        print(f"{arch}: energy R2={prof.energy.r_squared:.3f} "
-              f"runtime R2={prof.runtime.r_squared:.3f}")
-        profiles.append(prof)
-    return profiles
+    return [fit_and_report(arch, characterize(arch, batch=batch, max_tokens=max_tokens,
+                                              device=device))
+            for arch in archs]
 
 
 def serve(archs: list[str], *, n_queries: int, zeta: float,
           batch_size: int = 4, char_max_tokens: int = 64,
           device: str | torch.device = "cuda") -> dict:
     """Characterize (τin, τout up to `char_max_tokens`), route and serve.
-    Returns {"plan", "totals", "profiles"}."""
-    profiles = characterize_fleet(archs, max_tokens=char_max_tokens, device=device)
+    Returns {"plan", "totals", "profiles", "trials"} (trials per arch)."""
+    trials = {a: characterize(a, max_tokens=char_max_tokens, device=device) for a in archs}
+    profiles = [fit_and_report(a, trials[a]) for a in archs]
     router = EnergyAwareRouter(profiles, zeta=zeta)
 
     spec = WorkloadSpec(n_queries=n_queries, **SERVE_WORKLOAD)
@@ -135,7 +168,7 @@ def serve(archs: list[str], *, n_queries: int, zeta: float,
             continue
         eng = engines[arch]
         e_j = t_s = 0.0
-        n_tok = 0
+        n_tok = n_batches = 0
         qs = [(r.tau_in, r.max_new_tokens) for r in rs]
         for b in token_batches(qs, batch_size, eng.cfg.vocab_size):
             max_new = int(b["tau_out"].max())
@@ -143,10 +176,11 @@ def serve(archs: list[str], *, n_queries: int, zeta: float,
             e_j += stats.energy_j
             t_s += stats.runtime_s
             n_tok += int(b["lengths"].sum()) + max_new * batch_size
+            n_batches += 1
         totals[arch] = {"queries": len(rs), "energy_j": e_j,
-                        "runtime_s": t_s, "tokens": n_tok}
+                        "runtime_s": t_s, "tokens": n_tok, "batches": n_batches}
         print(f"{arch}: {len(rs)} queries, {e_j:.1f} J, {t_s:.1f}s measured")
-    return {"plan": plan, "totals": totals, "profiles": profiles}
+    return {"plan": plan, "totals": totals, "profiles": profiles, "trials": trials}
 
 
 def main(argv=None) -> int:

@@ -14,9 +14,12 @@ serving uses it:
 The engine runs on `device` ("cuda" unless the caller asks for "cpu") and
 raises when that device is missing; the params must already be there.
 An optional meter (repro_torch.energy.meter) wraps each phase and returns
-joules; GenStats feeds the characterization campaign directly.  The vlm
-and encdec families also take the stubbed frontends' embeddings
-("patches", "frames") in the batch; they go to the device once a call.
+joules; GenStats feeds the characterization campaign directly.  A meter
+that meters whole calls (`per_call`: NVML's counter, which steps too
+seldom to meter one step) wraps the whole generate instead, and the
+phases are only timed.  The vlm and encdec families also take the
+stubbed frontends' embeddings ("patches", "frames") in the batch; they
+go to the device once a call.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ class GenStats:
     decode_energy_j: float = 0.0
     tau_in: int = 0
     tau_out: int = 0
+    call_energy_j: float | None = None      # a per-call meter's window
 
     @property
     def runtime_s(self) -> float:
@@ -52,6 +56,8 @@ class GenStats:
 
     @property
     def energy_j(self) -> float:
+        if self.call_energy_j is not None:
+            return self.call_energy_j
         return self.prefill_energy_j + self.decode_energy_j
 
     @property
@@ -102,6 +108,7 @@ class InferenceEngine:
         self.bucket = bucket
         self.long_context = long_context
         self.meter = meter or _NullMeter()
+        self.step_meter = _NullMeter() if getattr(meter, "per_call", False) else self.meter
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------
@@ -127,9 +134,12 @@ class InferenceEngine:
     def generate(self, batch: dict, max_new_tokens: int) -> tuple[np.ndarray, GenStats]:
         """batch: {"tokens": [B, S0] int32, (+"patches"/"frames")}.
         Returns (generated [B, max_new_tokens] int32, stats)."""
-        if self.kv_cache:
-            return self._generate_cached(batch, max_new_tokens)
-        return self._generate_uncached(batch, max_new_tokens)
+        run = self._generate_cached if self.kv_cache else self._generate_uncached
+        if self.step_meter is self.meter:
+            return run(batch, max_new_tokens)
+        (out, stats), _, joules = self.meter.measure(lambda: run(batch, max_new_tokens))
+        stats.call_energy_j = joules
+        return out, stats
 
     def _generate_cached(self, batch, max_new):
         tokens = torch.as_tensor(np.asarray(batch["tokens"], np.int32), device=self.device)
@@ -137,7 +147,7 @@ class InferenceEngine:
         inputs = {"tokens": tokens, **self._extra_inputs(batch)}
         cache_len = self._pad_len(prefix_positions(self.cfg) + S0 + max_new)
 
-        (logits, cache), t_prefill, e_prefill = self.meter.measure(
+        (logits, cache), t_prefill, e_prefill = self.step_meter.measure(
             lambda: self._prefill(inputs, cache_len))
 
         stats = GenStats(prefill_s=t_prefill, prefill_energy_j=e_prefill,
@@ -149,7 +159,7 @@ class InferenceEngine:
         e_total = 0.0
         for t in range(max_new):
             out[:, t] = token.cpu().numpy()
-            (token, cache), dt, de = self.meter.measure(
+            (token, cache), dt, de = self.step_meter.measure(
                 lambda tok=token, c=cache: self._decode(c, tok))
             e_total += de
         stats.decode_s = time.perf_counter() - t0
@@ -176,7 +186,7 @@ class InferenceEngine:
             L = S0 + t
             inputs = {"tokens": torch.as_tensor(buf[:, :L], device=self.device), **extra}
             # full re-forward over the exact prefix — the paper's mode
-            (logits, _cache), dt, de = self.meter.measure(
+            (logits, _cache), dt, de = self.step_meter.measure(
                 lambda i=inputs, lp=n_prefix + L: self._prefill(i, lp))
             e_total += de
             if first_step_s is None:

@@ -925,3 +925,38 @@ def test_wrappers_on_fake_cuda_tensors_launch_nothing(cuda, which):
     for o, w in zip(out if isinstance(out, tuple) else (out,),
                     want if isinstance(want, tuple) else (want,)):
         assert o.shape == w.shape and o.dtype == w.dtype and o.device.type == "cuda"
+
+
+def test_nvml_meter_reads_the_cards_counter(cuda):
+    """The port's meter over ~1 s of bf16 matmuls: positive joules, an
+    average power between the card's idle power (a metered 0.5 s sleep)
+    and its enforced limit, and the NVML device it opened is the torch
+    device's own (by UUID)."""
+    import ctypes
+    import subprocess
+    import time
+    from repro_torch.energy.meter import NvmlMeter
+    meter = NvmlMeter(cuda)
+    assert meter.uuid == str(torch.cuda.get_device_properties(cuda).uuid).lower()
+    buf = ctypes.create_string_buffer(96)
+    assert meter.lib.nvmlDeviceGetUUID(meter.handle, buf, len(buf)) == 0
+    assert buf.value.decode().lower() == "gpu-" + meter.uuid
+    _, idle_s, idle_j = meter.measure(lambda: time.sleep(0.5))
+    idle_w = idle_j / idle_s
+    a = torch.randn(8192, 8192, device=cuda, dtype=torch.bfloat16)
+    c = torch.empty_like(a)
+
+    def busy():
+        t_end = time.perf_counter() + 1.0
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                torch.matmul(a, a, out=c)
+            torch.cuda.synchronize()
+
+    _, s, j = meter.measure(busy)
+    limit = subprocess.run(["nvidia-smi", "--query-gpu=power.limit",
+                            "--format=csv,noheader,nounits", f"--id=GPU-{meter.uuid}"],
+                           capture_output=True, text=True, timeout=60)
+    limit_w = float(limit.stdout.strip())
+    assert j > 0 and s > 0.9
+    assert idle_w < j / s <= 1.05 * limit_w, (idle_w, j / s, limit_w)
