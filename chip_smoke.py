@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+Every engine call on the card replays a CUDA graph captured for its shapes
+(`serving.engine`: the reference's jit keys); the graphs' replays add the
+launches their captures recorded to the kernels' counts, and each serve
+phase prints every engine's graphs (count, capture seconds, pool GiB).
+
 Phases, each of which must pass:
   1. device   the card's name and count, and `nvidia-smi`'s name and power limit;
   2. build    every CUDA kernel from src/repro_torch/kernels/csrc (B1, B2,
@@ -51,7 +56,8 @@ Phases, each of which must pass:
               the card: characterize with the KV cache off (one warm-up
               generate over every length, then the campaign), fit, route 24
               queries, serve with the KV cache on.  First llama2-7b and
-              llama2-13b (characterized up to 32 tokens), where kernel B1's
+              llama2-13b (characterized up to 64 tokens, the reference's
+              `characterize_fleet` default), where kernel B1's
               launch count must equal the decode work done; then
               mamba2-130m and recurrentgemma-9b (characterized up to 32
               tokens: SCAN_CHAR_MAX_TOKENS), where every prefill must launch
@@ -65,7 +71,11 @@ Phases, each of which must pass:
               of 8 and 9 print Eq. 6's R² on those joules beside the R²
               of the host model's (`WallClockMeter`'s) for the same trials,
               each trial's power (held within [idle / 2, 1.05 x the power
-              limit]), the repeats' spread and each (τin, τout)'s first
+              limit]), its shortest trial and the meter's per-window error
+              bound as a share of its smallest trial window (held at 5 %:
+              a trial shorter than `launch.serve.TRIAL_WINDOW_S` is
+              repeated inside its window), the repeats'
+              spread and each (τin, τout)'s first
               trial over its later ones, and the windows' joules against
               NVML's reading over the whole run (held within one counter
               step a window); phase 1 prints the counter's steps at idle
@@ -81,12 +91,18 @@ Phases, each of which must pass:
               the limit must fail), B1's launches counted over its fp8
               decode steps alone; then the device's busy share of
               full-width decode steps and prefills and the kernels' shares
-              of it (profiler);
+              of it (profiler); then the engine's CUDA graphs against the
+              same steps run eagerly on the card at full width (llama2-7b,
+              mamba2-130m, recurrentgemma-9b; KV on, prefill + 8 decode
+              steps, and KV off, a trial's 8 re-forwards): greedy tokens
+              identical, logits bit-identical, each mode's step wall,
+              busy time and idle share, and the profiler's records of B1
+              (one per attention layer) in a decode replay and of B3 / B4
+              (one per SSM / recurrent layer) in a KV-off replay;
   8. moe      the MoE family through the same `serve`: granite-moe-3b-a800m
-              at full width cut to 16 of 32 layers and mixtral-8x7b at full
+              at full width and depth (32 layers) and mixtral-8x7b at full
               width cut to 4 of 32 layers (DEPTH_CUTS: 47 B parameters fit
-              no 80 GB card; both cut to keep the script inside its time
-              limit), random bf16 weights, characterized up to 16 tokens,
+              no 80 GB card), random bf16 weights, characterized up to 16 tokens,
               24 queries routed and served, and one KV-on generate of each
               outside the router; B1's launches must equal the attention
               layers x decode steps.  Then the reduced mixtral, granite and
@@ -218,21 +234,19 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 # CUDA-core f32, bf16 tensor; f64 outside the tensor cores (H100 SXM data sheet)
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 34e12}
 SERVE_ARCHS = ["llama2-7b", "llama2-13b"]
-SERVE_CHAR_MAX_TOKENS = 32      # the llama2 path's characterization grid top
+SERVE_CHAR_MAX_TOKENS = 64      # the llama2 path's grid top: the reference's default
 SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
 SCAN_CHAR_MAX_TOKENS = 32       # the scan path's characterization grid top
 MOE_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b"]
 MOE_CHAR_MAX_TOKENS = 16        # the MoE path's characterization grid top
 # Depth cuts at full width: mixtral-8x7b's 32 layers (47 B parameters, ~94 GB
 # in bf16) and deepseek-v3-671b's 61 fit no 80 GB card.  To keep the script
-# inside its time limit on slow hosts (the serve phases are host-bound and
-# ran 1.5-2.1x slower on some hosts than on others), mixtral-8x7b is served
-# with 4 layers, granite-moe-3b-a800m with 16 of its 32 (phase 11 trains it
-# at full depth) and seamless-m4t-large-v2 with 6 of its 24 encoder and 24
-# decoder layers (an encdec cut is per stack; its KV-off characterization
-# re-encodes 4,096 frames every call).
-DEPTH_CUTS = {"mixtral-8x7b": 4, "granite-moe-3b-a800m": 16, "deepseek-v3-671b": 4,
-              "seamless-m4t-large-v2": 6}
+# inside its time limit on slow hosts, mixtral-8x7b is served with 4 layers
+# and seamless-m4t-large-v2 with 6 of its 24 encoder and 24 decoder layers
+# (an encdec cut is per stack; its KV-off characterization re-encodes 4,096
+# frames every call, device-bound, which the engine's CUDA graphs do not
+# shorten).  granite-moe-3b-a800m is served at all its 32 layers.
+DEPTH_CUTS = {"mixtral-8x7b": 4, "deepseek-v3-671b": 4, "seamless-m4t-large-v2": 6}
 ENCDEC_VLM_ARCHS = ["seamless-m4t-large-v2", "internvl2-2b"]
 ENCDEC_VLM_CHAR_MAX_TOKENS = 16
 SERVE_QUERIES = 24
@@ -324,18 +338,33 @@ def idle_watts() -> float:
     return j / s
 
 
+# the idle power's error over a window's idle head and tail: the spread of
+# the power of mamba2-130m's eager trials, which drew the idle power
+IDLE_W_ERR = 5.0
+
+
+def window_error_j(counter, idle_w) -> float:
+    """The bound on one window's error: a counter read's latency at the
+    card's idle power, plus the idle power's error over the idle head and
+    tail (at most a counter step before the call and two after it)."""
+    return counter["read_us"] * 1e-6 * idle_w + IDLE_W_ERR * 3 * counter["step_ms"] * 1e-3
+
+
 def quartiles(xs) -> list:
     qs = statistics.quantiles(xs, n=4, method="inclusive") if len(xs) > 1 else xs
     return [round(q, 4) for q in qs]
 
 
-def energy_report(tag, serve_mod, out, whole, idle_w, limit_w, counter) -> None:
+def energy_report(tag, serve_mod, out, whole, idle_w, limit_w, counter, calls) -> None:
     """The serve cell's energy: per characterized model Eq. 6's R² on NVML
     joules beside the host model's and the runtime R², each trial's power
-    (within [idle / 2, 1.05 x limit]), the repeats' spread and the first
-    trial at each (τin, τout) over the later ones; then the windows' joules
-    (trials and served batches) against the NVML reading over the whole
-    run `whole` (a NvmlMeter's `last`), within one counter step a window."""
+    (within [idle / 2, 1.05 x limit]), the meter's per-window error bound
+    against the smallest of its trials' windows (at most 5 %: the engine
+    repeats a short trial inside its window, `calls.windows`), the
+    repeats' spread and the first trial at each (τin, τout) over the later
+    ones; then the windows' joules (trials and served batches) against the
+    NVML reading over the whole run `whole` (a NvmlMeter's `last`), within
+    one counter step a window."""
     from repro_torch.core.characterize import fit_profile_from_trials
     from repro_torch.energy.meter import WallClockMeter
     n_windows, windows_j = 0, 0.0
@@ -355,6 +384,19 @@ def energy_report(tag, serve_mod, out, whole, idle_w, limit_w, counter) -> None:
         check(all(idle_w / 2 <= w <= 1.05 * limit_w for w in watts),
               f"{prof.name}: a trial's power lies outside [{idle_w / 2}, {1.05 * limit_w}] W: "
               f"{[round(w, 1) for w in watts]}")
+        short = min(trials, key=lambda t: t.runtime_s)
+        err_j = window_error_j(counter, idle_w)
+        # the campaign's windows: the warm-up's, then one a trial
+        wins = calls.windows[(prof.name, False)][-len(trials):]
+        share = err_j / min(wins)
+        print(f"[{tag}] {prof.name}: shortest trial ({short.tau_in}, {short.tau_out}): "
+              f"{short.runtime_s} s, {short.energy_j} J, {short.energy_j / short.runtime_s:.1f} "
+              f"W (gate [{idle_w / 2:.1f}, {1.05 * limit_w:.1f}]); trials' windows "
+              f"{min(wins)}-{max(wins)} J (a window at least {serve_mod.TRIAL_WINDOW_S} s); the "
+              f"meter's per-window error bound {err_j:.3f} J is {share:.4f} of the smallest")
+        check(len(wins) == len(trials) and share <= 0.05,
+              f"{prof.name}: the meter's error bound {err_j} J is {share} of its smallest "
+              f"trial window ({len(wins)} windows for {len(trials)} trials)")
         visits = collections.defaultdict(list)
         for t in trials:
             visits[(t.tau_in, t.tau_out)].append(t)
@@ -373,7 +415,7 @@ def energy_report(tag, serve_mod, out, whole, idle_w, limit_w, counter) -> None:
               f"pairs; of the second / median of the later ones {quartiles(later)} over "
               f"{len(later)} pairs")
         n_windows += len(trials)
-        windows_j += sum(t.energy_j for t in trials)
+        windows_j += sum(wins)
     for arch, t in out["totals"].items():
         print(f"[{tag}] {arch}: queries={t['queries']} tokens={t['tokens']} "
               f"measured_s={t['runtime_s']} NVML_J={t['energy_j']} "
@@ -652,16 +694,19 @@ def run_serve(torch, kda, serve_mod, limit_w, counter) -> tuple[int, list]:
     """Phase 6's llama2 serve.  Returns B1's launches over it and the
     llama2-7b/13b profiles fitted from the card's runs."""
     from repro_torch.energy.meter import NvmlMeter
+    from repro_torch.serving import InferenceEngine
     idle_w = idle_watts()
     torch.cuda.reset_peak_memory_stats()
-    kda.launches = 0
-    whole = NvmlMeter("cuda")
-    out, wall, _ = whole.measure(lambda: serve_mod.serve(
-        SERVE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
-        char_max_tokens=SERVE_CHAR_MAX_TOKENS, device="cuda"))
-    launches = kda.launches
+    with EngineCalls(InferenceEngine, {"B1": kda}) as calls:
+        kda.launches = 0
+        whole = NvmlMeter("cuda")
+        out, wall, _ = whole.measure(lambda: serve_mod.serve(
+            SERVE_ARCHS, n_queries=SERVE_QUERIES, zeta=0.5,
+            char_max_tokens=SERVE_CHAR_MAX_TOKENS, device="cuda"))
+        launches = kda.launches
 
-    energy_report("serve", serve_mod, out, whole.last, idle_w, limit_w, counter)
+    calls.report("serve")
+    energy_report("serve", serve_mod, out, whole.last, idle_w, limit_w, counter, calls)
     print(f"[serve] serve() wall s={wall} (characterized up to {SERVE_CHAR_MAX_TOKENS} tokens)")
     print(f"[serve] max_memory_allocated GiB={torch.cuda.max_memory_allocated() / 2**30}")
     expected = expected_decode_launches(serve_mod, out)
@@ -968,6 +1013,140 @@ def check_outputs(torch, kda, serve_mod) -> int:
     decode_breakdown(torch, eng.api, eng.cfg, eng.params, cache, token, B1_KEYS,
                      "B1 (one kernel a call)")
     return fp8_launches
+
+
+# Phase 7's graphed-against-eager block: full width, a prompt of 40 tokens
+# and 8 new ones, batch 4 KV-on (as served) and 2 KV-off (as characterized)
+GRAPH_ARCHS = ["llama2-7b", "mamba2-130m", "recurrentgemma-9b"]
+GRAPH_PROMPT, GRAPH_NEW = 40, 8
+
+
+def graph_drive(torch, eng, batch, steps) -> tuple:
+    """Prefill and `steps` greedy decode steps through the engine's own
+    steps (captured first when it is graphed), as `generate` runs them:
+    each step's logits and tokens, and the cache and token to step on."""
+    eng._prepare(batch, steps)
+    inputs = {"tokens": torch.as_tensor(batch["tokens"], device=eng.device),
+              **eng._extra_inputs(batch)}
+    logits, cache = eng._prefill(inputs, eng._cache_len(inputs["tokens"].shape[1], steps))
+    out = [logits.clone()]
+    token = eng.sampler(logits, eng.generator)
+    toks = [token.clone()]
+    for _ in range(steps):
+        key = eng._decode_key(cache, token)
+        token, cache = eng._decode(cache, token)
+        out.append(eng.steps[key].outputs[2].clone())
+        toks.append(token.clone())
+    torch.cuda.synchronize()
+    return out, toks, cache, token
+
+
+def prefill_logits(eng) -> list:
+    """The logits of each of `eng`'s prefill calls from now on, cloned at
+    the call: a graph's static logits hold only until the engine's next
+    replay (its graphs share one memory pool)."""
+    seen = []
+
+    def prefill(inputs, cache_len):
+        logits, cache = type(eng)._prefill(eng, inputs, cache_len)
+        seen.append(logits.clone())
+        return logits, cache
+
+    eng._prefill = prefill
+    return seen
+
+
+def step_profile(torch, label, fn, keys, steps=6) -> tuple:
+    """Wall ms, device busy ms and idle share of one engine step, and the
+    profiler's records a call of the kernels named by `keys` (None where
+    it saw no device time)."""
+    wall_ms, events, why = _profile(torch, fn, steps)
+    if not events:
+        print(f"[graphs] {label}: wall {wall_ms:.3f} ms; busy not measured ({why})")
+        return wall_ms, None, None
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    records = sum(e.count for e in events if any(k in e.key for k in keys)) // steps
+    print(f"[graphs] {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; {keys} kernel records a call: {records}")
+    return wall_ms, busy_ms, records
+
+
+def check_graphs(torch, serve_mod) -> None:
+    """The engine's CUDA graphs against the same steps run eagerly on the
+    card (`graphed = False`), at full width: GRAPH_ARCHS KV on (prefill and
+    GRAPH_NEW decode steps) and KV off (the GRAPH_NEW re-forwards of a
+    characterization trial).  Greedy tokens identical and every step's
+    logits bit-identical; each engine's graphs; one decode step's and one
+    KV-off prefill's wall, device busy time and idle share in both modes;
+    and in one replay the profiler's kernel records: B1 once per
+    attention layer in a decode step, B3 once per SSM layer and B4 once
+    per recurrent layer in a KV-off prefill."""
+    import numpy as np
+    from repro_torch.models import hybrid
+    from repro_torch.serving import InferenceEngine
+    t0 = time.perf_counter()
+    for arch in GRAPH_ARCHS:
+        base = serve_mod.build_engine(arch, kv_cache=True, device="cuda")
+        cfg, params = base.cfg, base.params
+        del base
+        scans = SCAN_KERNEL_KEYS["B3 forward"] + SCAN_KERNEL_KEYS["B4 forward"]
+        if cfg.family == "hybrid":
+            want = {"decode": hybrid.pattern_counts(cfg)[2], "prefill": hybrid.n_rec_layers(cfg)}
+        else:
+            want = {"decode": cfg.n_layers * (cfg.family == "dense"),
+                    "prefill": cfg.n_layers * (cfg.family == "ssm")}
+        for kv, B in ((True, 4), (False, 2)):
+            engs = {}
+            for graphed in (True, False):
+                engs[graphed] = InferenceEngine(cfg, params, kv_cache=kv,
+                                                bucket=serve_mod.SERVE_BUCKET, device="cuda")
+                engs[graphed].graphed = graphed
+            toks = np.random.default_rng(7).integers(
+                1, cfg.vocab_size, (B, GRAPH_PROMPT)).astype(np.int32)
+            batch = {"tokens": toks}
+            if kv:
+                runs = {g: graph_drive(torch, e, batch, GRAPH_NEW) for g, e in engs.items()}
+                same_tokens = all(torch.equal(a, b) for a, b in zip(runs[True][1], runs[False][1]))
+                same = [torch.equal(a, b) for a, b in zip(runs[True][0], runs[False][0])]
+                kind, keys, n_want = "decode", B1_KEYS, want["decode"]
+                fns = {g: (lambda e=e, c=runs[g][2], t=runs[g][3]: e._decode(c, t))
+                       for g, e in engs.items()}
+            else:
+                seen = {g: prefill_logits(e) for g, e in engs.items()}
+                gens = {g: e.generate(batch, GRAPH_NEW)[0] for g, e in engs.items()}
+                same_tokens = np.array_equal(gens[True], gens[False])
+                same = [torch.equal(a, b) for a, b in zip(seen[True], seen[False])]
+                same.append(len(seen[True]) == len(seen[False]) == len(engs[True].steps)
+                            == GRAPH_NEW)
+                kind, keys, n_want = "KV-off prefill", scans, want["prefill"]
+                L = GRAPH_PROMPT + GRAPH_NEW - 1          # the trial's longest, captured
+                inputs = {"tokens": torch.as_tensor(np.random.default_rng(8).integers(
+                    1, cfg.vocab_size, (B, L)).astype(np.int32), device="cuda")}
+                fns = {g: (lambda e=e: e._prefill(inputs, L)) for g, e in engs.items()}
+            g = engine_graphs(engs[True])
+            print(f"[graphs] {arch} KV-{'on' if kv else 'off'} (B={B}, {GRAPH_PROMPT} + "
+                  f"{GRAPH_NEW} tokens): greedy tokens graphed == eager {same_tokens}; logits "
+                  f"bit-identical in {sum(same)} of {len(same)} steps; {g['graphs']} graphs, "
+                  f"capture s={g['capture_s']}, pool GiB={g['pool_gib']}, warm-up launches "
+                  f"{g['warm_launches']}")
+            check(same_tokens and all(same), f"{arch} kv={kv}: graphed steps differ from eager")
+            stats = {}
+            for graphed, fn in fns.items():
+                label = f"{arch} {kind} step {'graphed (replay)' if graphed else 'eager'}"
+                stats[graphed] = step_profile(torch, label, fn, keys)
+            records = stats[True][2]
+            print(f"[graphs] {arch} {kind}: graphed wall / eager wall "
+                  f"{stats[True][0] / stats[False][0]:.3f}; kernel records a replay {records}, "
+                  f"want {n_want}")
+            check(records == n_want, f"{arch} {kind}: the replay's trace shows {records} "
+                  f"records of {keys}, want {n_want}")
+            del engs, fns
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[phase] graphs against eager s={time.perf_counter() - t0}")
 
 
 def _profile(torch, fn, steps):
@@ -1474,12 +1653,18 @@ def time_scan_backwards(torch, kss, krg) -> dict:
 class EngineCalls:
     """Counts the engines' prefill and decode calls per (model, KV mode,
     kind), and the kernel launches each made, by wrapping
-    InferenceEngine._prefill/_decode while the block runs."""
+    InferenceEngine._prefill/_decode while the block runs (a call replays
+    a CUDA graph, which adds the launches its capture recorded); keeps
+    each engine's graphs after each generate (`report` prints them); and
+    each per-call meter's window per (model, KV mode): its joules net of
+    the idle head and tail, over all the repeats it held."""
 
     def __init__(self, engine_cls, counters: dict):
         self.cls, self.counters = engine_cls, counters
         self.calls = collections.Counter()
         self.launches = collections.Counter()
+        self.engines = {}       # serial -> the engine's graphs after its last generate
+        self.windows = collections.defaultdict(list)    # (model, kv) -> window joules
 
     def _wrap(self, orig, kind):
         def call(eng, *args, **kw):
@@ -1492,14 +1677,49 @@ class EngineCalls:
             return out
         return call
 
+    def _wrap_generate(self, orig):
+        def generate(eng, *args, **kw):
+            n = len(eng.steps)
+            out = orig(eng, *args, **kw)
+            stats = out[1]
+            if stats.call_energy_j is not None:
+                self.windows[(eng.cfg.name, eng.kv_cache)].append(
+                    stats.call_energy_j * stats.repeats)
+            if not hasattr(eng, "_smoke_serial"):
+                eng._smoke_serial = len(self.engines)
+            if len(eng.steps) != n or eng._smoke_serial not in self.engines:
+                self.engines[eng._smoke_serial] = engine_graphs(eng)
+            return out
+        return generate
+
     def __enter__(self):
-        self.orig = self.cls._prefill, self.cls._decode
+        self.orig = self.cls._prefill, self.cls._decode, self.cls.generate
         self.cls._prefill = self._wrap(self.orig[0], "prefill")
         self.cls._decode = self._wrap(self.orig[1], "decode")
+        self.cls.generate = self._wrap_generate(self.orig[2])
         return self
 
     def __exit__(self, *exc):
-        self.cls._prefill, self.cls._decode = self.orig
+        self.cls._prefill, self.cls._decode, self.cls.generate = self.orig
+
+    def report(self, tag) -> None:
+        for g in self.engines.values():
+            print(f"[{tag}] graphs: {g['arch']} KV-{'on' if g['kv'] else 'off'} engine: "
+                  f"{g['graphs']} graphs, capture s={g['capture_s']}, pool GiB="
+                  f"{g['pool_gib']}, warm-up launches {g['warm_launches']}")
+        print(f"[{tag}] graphs over the phase: {sum(g['graphs'] for g in self.engines.values())}"
+              f" in {len(self.engines)} engines, capture s="
+              f"{sum(g['capture_s'] for g in self.engines.values())}")
+
+
+def engine_graphs(eng) -> dict:
+    """An engine's CUDA graphs: how many, the seconds their warm-ups and
+    captures took, the pool's reserved GiB and the warm-ups' launches."""
+    short = {"repro_torch.kernels.decode_attention": "B1",
+             "repro_torch.kernels.ssd_scan": "B3", "repro_torch.kernels.rglru_scan": "B4"}
+    return {"arch": eng.cfg.name, "kv": eng.kv_cache, "graphs": len(eng.steps),
+            "capture_s": eng.capture_s, "pool_gib": eng.pool_bytes() / 2**30,
+            "warm_launches": {short[k]: n for k, n in eng.capture_launches.items() if n}}
 
 
 def per_call_launches(cfg, kind) -> dict:
@@ -1540,7 +1760,8 @@ def run_scan_serve(torch, counters, serve_mod, limit_w, counter) -> dict:
         torch.cuda.synchronize()
     launches = {k: m.launches for k, m in counters.items()}
 
-    energy_report("scan-serve", serve_mod, out, whole.last, idle_w, limit_w, counter)
+    calls.report("scan-serve")
+    energy_report("scan-serve", serve_mod, out, whole.last, idle_w, limit_w, counter, calls)
     print(f"[scan-serve] serve() wall s={wall} "
           f"(characterized up to {SCAN_CHAR_MAX_TOKENS} tokens)")
     print(f"[scan-serve] max_memory_allocated GiB={torch.cuda.max_memory_allocated() / 2**30}")
@@ -1661,7 +1882,8 @@ def run_moe_serve(torch, kda, serve_mod, limit_w, counter) -> int:
         torch.cuda.synchronize()
         launches = kda.launches
 
-    energy_report("moe-serve", serve_mod, out, whole.last, idle_w, limit_w, counter)
+    calls.report("moe-serve")
+    energy_report("moe-serve", serve_mod, out, whole.last, idle_w, limit_w, counter, calls)
     print(f"[moe-serve] serve() wall s={wall} (characterized up to {MOE_CHAR_MAX_TOKENS} tokens)")
     print(f"[moe-serve] max_memory_allocated GiB over serve()={peak / 2**30}")
     n_routed = sum(len(rs) for rs in out["plan"].per_model.values())
@@ -1780,7 +2002,8 @@ def characterize_with_frontends(serve_mod, arch) -> list:
     or patches).  Returns the trials."""
     from repro_torch.core.characterize import run_campaign
     from repro_torch.serving.engine import measure_fn
-    engine = serve_mod.build_engine(arch, kv_cache=False, device="cuda")
+    engine = serve_mod.build_engine(arch, kv_cache=False, device="cuda",
+                                    min_window_s=serve_mod.TRIAL_WINDOW_S)
     serve_mod.warm_up(engine, 2, ENCDEC_VLM_CHAR_MAX_TOKENS)
     measure = measure_fn(lambda: engine, 2, engine.cfg.vocab_size)
     return run_campaign(arch, measure, serve_mod.campaign_settings(ENCDEC_VLM_CHAR_MAX_TOKENS))
@@ -1873,7 +2096,8 @@ def run_encdec_vlm_serve(torch, kda, serve_mod, limit_w, counter) -> dict:
         torch.cuda.synchronize()
         launches = kda.launches
 
-    energy_report("encdec-vlm", serve_mod, out, whole.last, idle_w, limit_w, counter)
+    calls.report("encdec-vlm")
+    energy_report("encdec-vlm", serve_mod, out, whole.last, idle_w, limit_w, counter, calls)
     print(f"[encdec-vlm] serve wall s={wall} (characterize + fit + route + serve; "
           f"characterized up to {ENCDEC_VLM_CHAR_MAX_TOKENS} tokens)")
     print(f"[encdec-vlm] max_memory_allocated GiB over the serve wall={peak / 2**30}")
@@ -3455,6 +3679,7 @@ def run_phases(torch, kids, kind, count, smi) -> int:
     t0 = time.perf_counter()
     launches, card_profiles = run_serve(torch, kda, serve_mod, limit_w, counter)
     fp8_launches = check_outputs(torch, kda, serve_mod)
+    check_graphs(torch, serve_mod)
     serve_walls = {"llama2": time.perf_counter() - t0}
     print(f"[phase] llama2 path (serve + outputs) s={serve_walls['llama2']}")
     t0 = time.perf_counter()

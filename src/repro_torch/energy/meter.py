@@ -123,17 +123,21 @@ class NvmlMeter:
     The counter steps only every ~100 ms on an H100, so a window read at
     arbitrary times would be off by up to one step at each end: more than
     a short engine call draws.  `measure` therefore opens and closes its
-    window on steps of the counter.  It waits for the device and opens on
-    the step that closed its previous window if the counter has not
-    stepped since (back-to-back calls), else on the next step; runs `fn`;
-    waits for the device; and closes on the next step.  The counter's
+    window on steps of the counter.  At a load's edges the counter
+    conserves energy but can report part of it a step early or late, so
+    both of a window's edges lie a whole step away from any device work:
+    it waits for the device and opens on the step that closed its
+    previous window if the counter has not stepped since (back-to-back
+    calls with no device work between them, which `invalidate` rules
+    out), else a step after the next one; runs `fn`; waits for the
+    device; and closes on the second step after.  The counter's
     difference between the two steps holds, besides `fn`'s energy, the
     card idling in the window's head (from the opening step to `fn`'s
     start) and tail (from the end of `fn`'s device work to the closing
     step).  Both are charged at the card's idle power, measured over one
-    whole counter period (from one step to the next, the device idle)
-    before a window that cannot reuse a step, and subtracted.  `last`
-    keeps the window's parts.
+    whole counter period (from one step to the next, the device idle for
+    a step before it) before a window that cannot reuse a step, and
+    subtracted.  `last` keeps the window's parts.
 
     The seconds are `fn`'s own, to the end of its device work.  Every
     NVML call is checked: a missing library, a non-zero return code or a
@@ -200,13 +204,19 @@ class NvmlMeter:
                 raise NvmlError(f"the energy counter of {self.device} did not step "
                                 f"in {TICK_TIMEOUT_S} s")
 
+    def invalidate(self) -> None:
+        """Device work ran outside any window since the last one closed (a
+        graph capture): the next window must not reuse that closing step,
+        whose period after it holds the work."""
+        self._closed = None
+
     def _open(self) -> tuple[int, float]:
         """The step a window opens on, measuring the idle power first
         unless it reuses the previous window's closing step."""
         mj = self.millijoules()
         if self._closed is not None and mj == self._closed[0]:
             return self._closed
-        e_a, t_a = self.next_step(mj)
+        e_a, t_a = self.next_step(self.next_step(mj)[0])
         e_b, t_b = self.next_step(e_a)
         self.idle_w = (e_b - e_a) / 1e3 / (t_b - t_a)
         return e_b, t_b
@@ -218,7 +228,7 @@ class NvmlMeter:
         out = fn()
         torch.cuda.synchronize(self.device)
         end = time.perf_counter()
-        e1, t1 = self.next_step()
+        e1, t1 = self.next_step(self.next_step()[0])
         self._closed = (e1, t1)
         window_j = (e1 - e0) / 1e3
         idle_s = (start - t0) + (t1 - end)

@@ -22,6 +22,7 @@ sharded along S).  The kernel writes it only when asked.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -72,6 +73,8 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float()) * scale
     if softcap and softcap > 0:
         s = torch.tanh(s / softcap) * softcap
+    if not isinstance(pos, torch.Tensor):
+        _refuse_int_pos_in_capture()
     pos = torch.as_tensor(pos, device=q.device)
     valid = torch.arange(S, device=q.device) <= pos
     if ring:
@@ -152,20 +155,57 @@ def _sm_count(index: int) -> int:
 # leaves every counter at 0, so a workspace is zeroed once, when made;
 # keying by stream keeps two streams' launches off each other's counters.
 _workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+# Open `record_workspaces` lists: each collects the workspaces handed out
+# while it is open.
+_recording: list[list] = []
+
+
+@contextlib.contextmanager
+def record_workspaces():
+    """Collects every workspace the kernel is given while the block runs.
+    A CUDA graph captured in the block keeps the list: its replays write
+    those workspaces, so none of them may be freed (and its memory handed
+    to other work, its counters left dirty) while the graph lives, even
+    after a larger one replaced it in `_workspaces`."""
+    used: list = []
+    _recording.append(used)
+    try:
+        yield used
+    finally:
+        _recording.remove(used)
 
 
 def _workspace(device: torch.device, stream: int, n_part: int, n_counters: int):
     key = (device.index, stream)
     ws = _workspaces.get(key)
     if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_counters:
-        # A smaller one is dropped: the caching allocator hands its memory
-        # only to work queued after it on this same stream.
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            # Zeroing a workspace made in a capture would run only when that
+            # graph replays, and another graph could use it first: it is made
+            # by an eager run of the step on the capturing stream.
+            raise RuntimeError("decode_attention: no workspace large enough on this "
+                               "stream; run the step once eagerly on the stream before "
+                               "capturing it into a CUDA graph")
+        # A smaller one is dropped (graphs that used it keep it, see
+        # `record_workspaces`): the caching allocator hands its memory only
+        # to work queued after it on this same stream.
         n_part = max(n_part, ws[0].numel() if ws else 0)
         n_counters = max(n_counters, ws[1].numel() if ws else 0)
         ws = (torch.empty(n_part, dtype=torch.float32, device=device),
               torch.zeros(n_counters, dtype=torch.int32, device=device))
         _workspaces[key] = ws
+    for used in _recording:
+        if not any(w is ws for w in used):
+            used.append(ws)
     return ws
+
+
+def _refuse_int_pos_in_capture() -> None:
+    """A Python int position captured into a CUDA graph would be frozen
+    into every replay: while a graph is captured `pos` must be a tensor."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("decode_attention: pos is a Python int while a CUDA graph is "
+                           "captured; pass it as a 0-d int32 tensor on the device")
 
 
 def _launch(q, k_cache, v_cache, pos, softcap, want_lse=False):
@@ -183,6 +223,7 @@ def _launch(q, k_cache, v_cache, pos, softcap, want_lse=False):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     fn = _kernel()
     if not isinstance(pos, torch.Tensor):
+        _refuse_int_pos_in_capture()
         pos = torch.tensor(int(pos), dtype=torch.int32, device=q.device)
     if pos.dtype != torch.int32 or pos.numel() != 1 or pos.device != q.device:
         raise ValueError(f"pos must be one int32 on {q.device}; got {pos.dtype} "

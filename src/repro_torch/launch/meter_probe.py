@@ -3,9 +3,14 @@ how often it steps, what a read costs, how far it lags a change of load,
 and how windows opened and closed on its steps compare with windows read
 at arbitrary times.  With `--warm-up`, also whether a KV-off trial at a new
 (τin, τout) runs slower than the next one after `launch.serve.warm_up`.
+With `--rules TREE`, also each model's characterization metered in turn by
+another checkout's NvmlMeter (TREE, say the parent commit unpacked with
+`git archive`) and by this one's, one call a window, then by this one with
+every window at least `launch.serve.TRIAL_WINDOW_S` long.
 
     PYTHONPATH=src python -m repro_torch.launch.meter_probe [--seconds 2]
     PYTHONPATH=src python -m repro_torch.launch.meter_probe --warm-up llama2-7b,mamba2-130m
+    PYTHONPATH=src python -m repro_torch.launch.meter_probe --rules build/parent
 
 Needs a CUDA device.  Prints a summary per part and writes every step the
 counter took to `--out` (JSON).
@@ -15,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -214,10 +220,73 @@ def warm_up_check(archs: list[str], passes: int = 2) -> dict:
     return out
 
 
+def load_meter(tree: str):
+    """The `energy.meter` module of the checkout at `tree`."""
+    spec = importlib.util.spec_from_file_location(
+        "meter_of_" + Path(tree).name, Path(tree) / "src/repro_torch/energy/meter.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rules_ab(archs: list[str], tree: str, limit_w: float, passes: int = 2) -> dict:
+    """Per arch: one KV-off engine, `launch.serve.warm_up`, then its
+    campaign (batch 2, τ up to 64 for a dense model and 32 otherwise, an
+    rng seeded 0 each run) metered `passes` times by `tree`'s NvmlMeter and
+    this one's in turn, one call a window, and once more by this one with
+    each window at least `TRIAL_WINDOW_S`.  Before each run, the idle power
+    over a window of 0.5 s of sleep.  Prints each run's trial power (min,
+    median, max), the trials outside [idle / 2, 1.05 x limit_w], the idle
+    powers the meter measured and the smallest window's joules."""
+    from repro_torch.core.characterize import run_campaign
+    from repro_torch.energy import meter as this
+    from repro_torch.launch import serve as serve_mod
+    other = load_meter(tree)
+    runs = [(tree, other, 0.0), ("this tree", this, 0.0)] * passes
+    runs.append(("this tree, windows >= TRIAL_WINDOW_S", this, serve_mod.TRIAL_WINDOW_S))
+    out = {}
+    for arch in archs:
+        eng = serve_mod.build_engine(arch, kv_cache=False, device="cuda")
+        top = 64 if eng.cfg.family == "dense" else 32
+        serve_mod.warm_up(eng, 2, top)
+        out[arch] = []
+        for label, mod, min_s in runs:
+            _, s, j = NvmlMeter("cuda").measure(lambda: time.sleep(0.5))
+            idle = j / s
+            eng.meter, eng.min_window_s = mod.NvmlMeter("cuda"), min_s
+            rng = np.random.default_rng(0)
+            seen = []
+
+            def measure(tin, tout):
+                toks = rng.integers(1, eng.cfg.vocab_size, (2, tin)).astype(np.int32)
+                _, st = eng.generate({"tokens": toks}, tout)
+                seen.append((eng.meter.idle_w, st.energy_j * st.repeats))
+                return st.energy_j, st.runtime_s
+
+            t0 = time.perf_counter()
+            trials = run_campaign(arch, measure, serve_mod.campaign_settings(top))
+            wall = time.perf_counter() - t0
+            w = [t.energy_j / t.runtime_s for t in trials]
+            bad = [round(x, 1) for x in w if not idle / 2 <= x <= 1.05 * limit_w]
+            idles = sorted({round(i, 1) for i, _ in seen})
+            print(f"[probe] rules {arch} ({label}): {len(trials)} trials in {wall:.1f} s, "
+                  f"idle {idle:.1f} W; trial W min {min(w):.1f} median "
+                  f"{statistics.median(w):.1f} max {max(w):.1f}; outside the gate {bad}; "
+                  f"the meter's idle W {idles}; smallest window "
+                  f"{min(x for _, x in seen):.2f} J", flush=True)
+            out[arch].append({"meter": label, "min_window_s": min_s, "idle_w": idle,
+                              "watts": w, "meter_idle_w": idles})
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--seconds", type=float, default=2.0)
     p.add_argument("--warm-up", default="")
+    p.add_argument("--rules", default="", help="another checkout to A/B the meter against")
+    p.add_argument("--rules-archs", default="llama2-13b,mamba2-130m")
     p.add_argument("--out", default="build/meter_probe.json")
     args = p.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -242,6 +311,9 @@ def main(argv=None) -> int:
     res["windows"] = windows(meter, run, ms)
     if args.warm_up:
         res["warm_up"] = warm_up_check(args.warm_up.split(","))
+    if args.rules:
+        limit_w = float(smi.stdout.split(",")[1].split()[0])
+        res["rules"] = rules_ab(args.rules_archs.split(","), args.rules, limit_w)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res))
     return 0

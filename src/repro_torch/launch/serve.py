@@ -11,7 +11,8 @@ Port of `repro.launch.serve`:
 1. Characterize each hosted model by REAL execution (KV cache disabled —
    the paper's measurement mode), each engine call metered: on CUDA by the
    card's NVML energy counter (`energy.meter.NvmlMeter`, one window a
-   call), on the CPU by wall clock x the modeled host power.
+   call, a short trial repeated inside its window for at least
+   `TRIAL_WINDOW_S`), on the CPU by wall clock x the modeled host power.
 2. Fit the per-model e_K / r_K workload models (Eq. 6/7).
 3. Route an Alpaca-like workload with the offline scheduler at the given
    zeta and serve every batch through the real engines (KV cache ON — the
@@ -61,19 +62,25 @@ from repro_torch.serving.requests import Request
 SERVE_WORKLOAD = dict(max_in=48, max_out=32, in_log_mean=2.8, out_log_mean=2.5)
 SERVE_BUCKET = 16
 WARMUP_SEED = 1             # the warm-up's tokens; the campaign's rng is seeded 0
+# A trial's NVML window lasts at least this long (the engine repeats a
+# shorter trial inside it): the meter's error, ~2 J a window on an H100
+# (the idle power's error over up to three counter steps of ~100 ms), is
+# then under 5 % of a trial's joules down to ~110 W.
+TRIAL_WINDOW_S = 0.4
 
 
-def build_engine(arch: str, *, kv_cache: bool, seed: int = 0,
+def build_engine(arch: str, *, kv_cache: bool, seed: int = 0, min_window_s: float = 0.0,
                  device: str | torch.device = "cuda") -> InferenceEngine:
     """The engine of `arch` with seeded random weights, metered by the
-    card's NVML counter on CUDA and by `WallClockMeter` on the CPU."""
+    card's NVML counter on CUDA (each call's window at least
+    `min_window_s` long) and by `WallClockMeter` on the CPU."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     api = get_api(cfg)
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     meter = NvmlMeter(dev) if dev.type == "cuda" else WallClockMeter()
-    return InferenceEngine(cfg, params, kv_cache=kv_cache,
-                           meter=meter, bucket=SERVE_BUCKET, device=dev)
+    return InferenceEngine(cfg, params, kv_cache=kv_cache, meter=meter,
+                           min_window_s=min_window_s, bucket=SERVE_BUCKET, device=dev)
 
 
 def campaign_settings(max_tokens: int) -> CampaignSettings:
@@ -94,10 +101,11 @@ def accuracy_ak(arch: str) -> float:
 def warm_up(engine: InferenceEngine, batch: int, max_tokens: int) -> None:
     """One KV-off generate from 8 tokens to 8 + 2 `max_tokens`: every
     sequence length a campaign up to `max_tokens` runs, run once before its
-    first trial (the reference warms each (τin, τout) to keep XLA's
-    compiles out of the measured energy; eager PyTorch compiles nothing per
-    shape).  Its tokens come from their own generator, so the campaign's
-    draws stay the reference's."""
+    first trial.  On CUDA it captures the engine's graph of each length
+    (before its metered window), so the campaign's trials only replay them
+    (the reference warms each (τin, τout) to keep XLA's compiles out of
+    the measured energy).  Its tokens come from their own generator, so
+    the campaign's draws stay the reference's."""
     toks = np.random.default_rng(WARMUP_SEED).integers(
         1, engine.cfg.vocab_size, (batch, 8)).astype(np.int32)
     engine.generate({"tokens": toks, **frontend_inputs(engine.cfg, batch)}, 2 * max_tokens)
@@ -113,7 +121,7 @@ def host_model(trials: list) -> list:
 def characterize(arch: str, *, batch: int = 2, max_tokens: int = 64,
                  device: str | torch.device = "cuda") -> list:
     """The KV-off campaign of one model up to `max_tokens`: its trials."""
-    engine = build_engine(arch, kv_cache=False, device=device)
+    engine = build_engine(arch, kv_cache=False, min_window_s=TRIAL_WINDOW_S, device=device)
     warm_up(engine, batch, max_tokens)
     rng = np.random.default_rng(0)
 

@@ -222,7 +222,10 @@ def _finish_cache(cfg, ks, vs, cache_len, window, pos_end):
     ring-packed into `window` slots."""
     ks = cachelib.to_cache_dtype(ks, cfg.kv_dtype)
     vs = cachelib.to_cache_dtype(vs, cfg.kv_dtype)
-    pos = torch.tensor(pos_end, dtype=torch.int32, device=ks.device)
+    # torch.full, not torch.tensor: a host int copied to the card is a
+    # synchronizing copy, which a CUDA graph's capture refuses (pos_end is
+    # fixed for a captured shape)
+    pos = torch.full((), pos_end, dtype=torch.int32, device=ks.device)
     if window:
         k, v = cachelib.ring_pack(ks, vs, window, pos_end)
         return cachelib.WindowKVCache(k, v, pos)

@@ -197,7 +197,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
         k[:, :, :S] = ks
         v[:, :, :S] = vs
         ks, vs = k, v
-    pos = torch.tensor(S, dtype=torch.int32, device=tokens.device)
+    # capture-safe: no host-to-card copy (see dense._finish_cache)
+    pos = torch.full((), S, dtype=torch.int32, device=tokens.device)
     return logits, cachelib.EncDecCache(ks, vs, ck, cv, pos)
 
 

@@ -267,7 +267,8 @@ def _assemble_cache(cfg, states, pos_end):
     k, v = cachelib.ring_pack(cachelib.to_cache_dtype(ks, cfg.kv_dtype),
                               cachelib.to_cache_dtype(vs, cfg.kv_dtype),
                               cfg.local_window, pos_end)
-    pos = torch.tensor(pos_end, dtype=torch.int32, device=lru.device)
+    # capture-safe: no host-to-card copy (see dense._finish_cache)
+    pos = torch.full((), pos_end, dtype=torch.int32, device=lru.device)
     return cachelib.HybridCache(lru, conv, k, v, pos)
 
 

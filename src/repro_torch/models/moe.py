@@ -513,8 +513,9 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
     c, r = c_kv.new_zeros(shape + c_kv.shape[3:]), k_rope.new_zeros(shape + k_rope.shape[3:])
     c[:, :, :S] = c_kv
     r[:, :, :S] = k_rope
-    return logits, cachelib.MLACache(c, r, torch.tensor(S, dtype=torch.int32,
-                                                        device=tokens.device))
+    # capture-safe: no host-to-card copy (see dense._finish_cache)
+    return logits, cachelib.MLACache(c, r, torch.full((), S, dtype=torch.int32,
+                                                      device=tokens.device))
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,

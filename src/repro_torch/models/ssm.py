@@ -226,7 +226,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
     h, (finals, convs) = forward_full(cfg, params, x, collect=True)
     h = rmsnorm(h[:, -1], params["final_norm"]["w"], cfg.rmsnorm_eps)
     logits = lm_logits(h, params["head"], cfg.vocab_size)
-    pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+    # capture-safe: no host-to-card copy (see dense._finish_cache)
+    pos = torch.full((), tokens.shape[1], dtype=torch.int32, device=tokens.device)
     return logits, cachelib.SSMCache(convs, finals, pos)
 
 

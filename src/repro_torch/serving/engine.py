@@ -13,13 +13,40 @@ serving uses it:
 
 The engine runs on `device` ("cuda" unless the caller asks for "cpu") and
 raises when that device is missing; the params must already be there.
+
+Compiled steps.  The reference jits `prefill` (static `cache_len`,
+`long_context`) and the decode step plus sampler (cache donated), so each
+call runs one program compiled for its shapes.  Here each such program is
+a `_Step`, keyed as XLA keys its programs: the input tensors' shapes and
+dtypes, plus `cache_len` and `long_context` for a prefill.  A step's body
+reads static buffers that each call first copies its inputs into.  On
+CUDA the body is captured once into a `torch.cuda.CUDAGraph` (an eager
+warm-up on the engine's side stream first, which also loads the kernels'
+modules and sizes B1's workspace) and every call replays it; all graphs
+of an engine share one memory pool and replay one at a time.  `generate`
+knows every shape it runs before it runs, so it captures what is missing
+before the meter's window opens (the reference warms up to keep XLA's
+compiles out of the measured energy).  On the CPU the body runs eagerly
+each call.  A failed capture or replay raises: there is no eager fallback
+on CUDA.
+
+The KV-on cache is the engine's own static buffers (one set per cache
+shape): the prefill's step copies the cache it builds into them, and the
+decode step writes them in place (the reference's donation), its
+`pos + 1` copied into the static `pos` and its token into the static
+token buffer.  A KV-off step keeps only the logits: the cache its prefill
+builds is freed when its capture ends, and that memory is reused by the
+engine's other graphs.
 An optional meter (repro_torch.energy.meter) wraps each phase and returns
 joules; GenStats feeds the characterization campaign directly.  A meter
 that meters whole calls (`per_call`: NVML's counter, which steps too
 seldom to meter one step) wraps the whole generate instead, and the
-phases are only timed.  The vlm and encdec families also take the
-stubbed frontends' embeddings ("patches", "frames") in the batch; they
-go to the device once a call.
+phases are only timed.  Such a window's error is a fixed number of
+joules, too large a share of a short call's: with `min_window_s` the
+engine repeats a call inside its one window until the repeats have
+lasted that long, and reports one call's mean seconds and joules.  The
+vlm and encdec families also take the stubbed frontends' embeddings
+("patches", "frames") in the batch; they go to the device once a call.
 """
 
 from __future__ import annotations
@@ -32,8 +59,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, shard
 from repro_torch.energy.meter import block_until_ready
+from repro_torch.kernels import decode_attention as _kda
+from repro_torch.kernels import rglru_scan as _krg
+from repro_torch.kernels import ssd_scan as _kss
 from repro_torch.models import get_api
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.vlm import VISION_DIM
@@ -48,7 +78,8 @@ class GenStats:
     decode_energy_j: float = 0.0
     tau_in: int = 0
     tau_out: int = 0
-    call_energy_j: float | None = None      # a per-call meter's window
+    call_energy_j: float | None = None      # a per-call meter's window / repeats
+    repeats: int = 1                        # the calls that window held
 
     @property
     def runtime_s(self) -> float:
@@ -79,6 +110,87 @@ def _leaves(tree: dict):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+# The kernel modules on the engine's steps, whose `launches` a replay adds
+# the launches its graph recorded to.
+KERNELS = (_kda, _kss, _krg)
+
+
+def _tensors(x):
+    """The tensors of a step's inputs or outputs (dicts, caches, tuples), in
+    a fixed order, with their names."""
+    if isinstance(x, torch.Tensor):
+        yield "", x
+    elif isinstance(x, dict):
+        for k in sorted(x):
+            for name, t in _tensors(x[k]):
+                yield f"{k}.{name}" if name else k, t
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            for name, t in _tensors(getattr(x, f.name)):
+                yield f"{f.name}.{name}" if name else f.name, t
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            for name, t in _tensors(v):
+                yield f"{i}.{name}" if name else str(i), t
+
+
+def signature(x) -> tuple:
+    """What jax.jit keys a program on besides its static arguments: each
+    input tensor's name, shape and dtype."""
+    return tuple((name, tuple(t.shape), t.dtype) for name, t in _tensors(x))
+
+
+def _copy_into(static, value) -> None:
+    """Copy `value`'s tensors into the same-shaped static buffers."""
+    for (_, dst), (_, src) in zip(_tensors(static), _tensors(value), strict=True):
+        if dst is not src:
+            dst.copy_(src)
+
+
+def _static_cache(caches: dict, cache):
+    """The static cache of `cache`'s shapes in `caches`, `cache` copied into
+    it; the first of its shapes (made eagerly: the warm-up on CUDA, the
+    first call on the CPU) becomes it."""
+    sig = signature(cache)
+    static = caches.get(sig)
+    if static is None:
+        if cache.pos.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a static cache would be made inside a capture")
+        static = caches[sig] = cache
+    else:
+        _copy_into(static, cache)
+    return static
+
+
+class _Step:
+    """One program of the engine: `body` over the static buffers `inputs`.
+    Eager on the CPU; on CUDA, once `InferenceEngine._capture` has captured
+    the body, every call replays its graph and adds the launches the
+    capture recorded to each kernel module's count.  Outputs made inside
+    the graph (logits) hold only until the engine's next replay: its
+    graphs share one pool, so another graph's scratch may lie there.  The
+    engine reads each before its next call; the inputs, the KV-on cache
+    and the decode's token buffer are made outside the pool."""
+
+    def __init__(self, key: tuple, inputs: dict, body: Callable):
+        self.key, self.inputs, self.body = key, inputs, body
+        self.graph = None            # torch.cuda.CUDAGraph, once captured
+        self.outputs = None          # the graph's static outputs (eager: the last)
+        self.launches: tuple = ()    # (kernel module, launches a replay)
+        self.workspaces: list = []   # B1 workspaces the graph writes
+
+    def __call__(self, inputs: dict):
+        for k, v in inputs.items():
+            _copy_into(self.inputs[k], v)
+        if self.graph is None:
+            self.outputs = self.body()
+            return self.outputs
+        self.graph.replay()
+        for mod, n in self.launches:
+            mod.launches += n
+        return self.outputs
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -90,6 +202,7 @@ class InferenceEngine:
         bucket: int = 32,
         long_context: bool = False,
         meter: Any = None,
+        min_window_s: float = 0.0,
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
@@ -109,7 +222,25 @@ class InferenceEngine:
         self.long_context = long_context
         self.meter = meter or _NullMeter()
         self.step_meter = _NullMeter() if getattr(meter, "per_call", False) else self.meter
+        self.min_window_s = min_window_s
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.steps: dict[tuple, _Step] = {}     # key -> program, as jit's cache
+        self._buffers: dict[tuple, torch.Tensor] = {}   # static inputs by (name, shape, dtype)
+        self._caches: dict[tuple, Any] = {}     # static KV-on caches by signature
+        self.capture_s = 0.0                    # warm-ups and captures, all graphs
+        self.capture_launches = {m.__name__: 0 for m in KERNELS}   # the warm-ups'
+        # Graphs exist only on CUDA; the CPU runs each step's body eagerly.
+        # A comparison may set it False on a CUDA engine to run the same
+        # steps eagerly there (chip_smoke.py, the gpu tests).
+        self.graphed = self.device.type == "cuda"
+        if self.graphed:
+            if any(shard.is_dtensor(p) for p in _leaves(params)):
+                raise NotImplementedError(
+                    "InferenceEngine captures its steps into CUDA graphs, and steps over "
+                    "DTensor params are not captured; drive sharded models through "
+                    "the model API (models.get_api) instead")
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
 
     # ------------------------------------------------------------------
     def _pad_len(self, n: int) -> int:
@@ -120,14 +251,165 @@ class InferenceEngine:
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()
                 if k in ("patches", "frames")}
 
+    def _cache_len(self, S0: int, max_new: int) -> int:
+        return self._pad_len(prefix_positions(self.cfg) + S0 + max_new)
+
     def _prefill(self, inputs: dict, cache_len: int):
-        return self.api.prefill(self.cfg, self.params, inputs,
-                                cache_len=cache_len, long_context=self.long_context)
+        """The reference's jitted prefill: (logits, the static cache) KV-on,
+        (logits, None) KV-off."""
+        return self._step(self._prefill_key(inputs, cache_len),
+                          lambda: self._prefill_step(inputs, cache_len))({"batch": inputs})
 
     def _decode(self, cache, token: torch.Tensor):
-        logits, cache = self.api.decode_step(self.cfg, self.params, cache,
-                                             {"token": token})
-        return self.sampler(logits, self.generator), cache
+        """The reference's jitted decode step and sampler: (next token, the
+        cache), both the engine's static buffers."""
+        return self._step(self._decode_key(cache, token),
+                          lambda: self._decode_step(cache, token))(
+            {"cache": cache, "token": token})[:2]
+
+    def _prefill_key(self, inputs: dict, cache_len: int) -> tuple:
+        return ("prefill", signature(inputs), cache_len, self.long_context)
+
+    def _decode_key(self, cache, token: torch.Tensor) -> tuple:
+        return ("decode", signature(cache), signature(token))
+
+    def _step(self, key: tuple, make: Callable[[], _Step]) -> _Step:
+        """The step of `key`.  The CPU makes it at its first call; CUDA
+        only replays what `_prepare` captured."""
+        step = self.steps.get(key)
+        if step is None:
+            if self.graphed:
+                raise RuntimeError(f"no CUDA graph was captured for {key}: generate "
+                                   f"captures every step it runs before it runs")
+            step = self.steps[key] = make()
+        return step
+
+    def _buffer(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The engine's static input buffer of `like`'s name, shape and dtype
+        (one per engine: graphs replay one at a time, each after its copy)."""
+        key = (name, tuple(like.shape), like.dtype)
+        if key not in self._buffers:
+            self._buffers[key] = torch.zeros(like.shape, dtype=like.dtype, device=self.device)
+        return self._buffers[key]
+
+    # The step bodies close over the engine's parts, never the engine: an
+    # engine in a reference cycle would keep its weights and graphs on the
+    # card after its last use, until the garbage collector ran.
+    def _prefill_step(self, inputs: dict, cache_len: int) -> _Step:
+        static = {k: self._buffer(k, v) for k, v in inputs.items()}
+        api, cfg, params, kv_cache, caches = (self.api, self.cfg, self.params,
+                                              self.kv_cache, self._caches)
+        kw = dict(cache_len=cache_len, long_context=self.long_context)
+
+        def body():
+            logits, cache = api.prefill(cfg, params, static, **kw)
+            return logits, (_static_cache(caches, cache) if kv_cache else None)
+
+        return _Step(self._prefill_key(inputs, cache_len), {"batch": static}, body)
+
+    def _decode_step(self, cache, token: torch.Tensor) -> _Step:
+        static = self._caches[signature(cache)]
+        tok = self._buffer("token", token)
+        api, cfg, params, sampler, generator = (self.api, self.cfg, self.params,
+                                                self.sampler, self.generator)
+
+        def body():
+            logits, new = api.decode_step(cfg, params, static, {"token": tok})
+            for f in dataclasses.fields(static):
+                if f.name != "pos" and getattr(new, f.name) is not getattr(static, f.name):
+                    raise RuntimeError(f"{cfg.family} decode_step returned a new "
+                                       f"{f.name}: the static cache must be written in place")
+            static.pos.copy_(new.pos)
+            tok.copy_(sampler(logits, generator))
+            return tok, static, logits
+
+        return _Step(self._decode_key(cache, token), {"cache": static, "token": tok}, body)
+
+    # ------------------------------------------------------------------
+    def _prepare(self, batch: dict, max_new: int) -> bool:
+        """Capture the CUDA graphs this generate replays and the engine lacks:
+        KV-on the prefill at (B, S0, cache_len) and the decode at the cache's
+        shapes; KV-off one prefill per sequence length, longest first (so
+        the pool's blocks, freed at the end of each capture, fit the next).
+        Whether it captured any (ran work on the device)."""
+        if not self.graphed:
+            return False
+        n = len(self.steps)
+        spec = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in self._specs(batch).items()}
+        B, S0 = spec["tokens"].shape
+        if self.kv_cache:
+            cache_len = self._cache_len(S0, max_new)
+            key = self._prefill_key(spec, cache_len)
+            if key not in self.steps:
+                self._capture(self._prefill_step(spec, cache_len))
+            cache = self.steps[key].outputs[1]
+            token = torch.empty((B,), dtype=torch.int32, device="meta")
+            if self._decode_key(cache, token) not in self.steps:
+                self._capture(self._decode_step(cache, token))
+        else:
+            for L in range(S0 + max_new - 1, S0 - 1, -1):
+                inputs = {**spec, "tokens": torch.empty((B, L), dtype=torch.int32,
+                                                        device="meta")}
+                lp = prefix_positions(self.cfg) + L
+                if self._prefill_key(inputs, lp) not in self.steps:
+                    self._capture(self._prefill_step(inputs, lp))
+        return len(self.steps) != n
+
+    def _specs(self, batch: dict) -> dict:
+        """Shapes and dtypes of a generate's device inputs, as meta tensors'
+        (nothing is copied)."""
+        out = {"tokens": torch.empty(np.shape(batch["tokens"]), dtype=torch.int32,
+                                     device="meta")}
+        for k, v in batch.items():
+            if k in ("patches", "frames"):
+                dtype = (v.dtype if isinstance(v, torch.Tensor)
+                         else torch.from_numpy(np.empty(0, np.asarray(v).dtype)).dtype)
+                out[k] = torch.empty(tuple(v.shape), dtype=dtype, device="meta")
+        return out
+
+    def _capture(self, step: _Step) -> None:
+        """Capture `step` into a CUDA graph: an eager warm-up on the engine's
+        side stream, then `torch.cuda.graph` on the same stream into the
+        engine's pool.  Records the launches the capture made per kernel
+        module, which each replay adds to the modules' counts, and the B1
+        workspaces it used.  The counts stay those of the engine's calls:
+        the capture runs nothing on the device, and the warm-up's launches
+        are tallied in `capture_launches` instead."""
+        t0 = time.perf_counter()
+        before = [m.launches for m in KERNELS]
+        with torch.cuda.device(self.device):
+            cur = torch.cuda.current_stream()
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                step.body()
+            cur.wait_stream(self._stream)
+            warm = [m.launches for m in KERNELS]
+            graph = torch.cuda.CUDAGraph()
+            if step.key[0] == "decode" and self.sampler.temperature > 0:
+                if not hasattr(graph, "register_generator_state"):
+                    raise RuntimeError("sampling at temperature > 0 draws from the engine's "
+                                       "generator, which this torch cannot register with a "
+                                       "CUDA graph")
+                graph.register_generator_state(self.generator)
+            with _kda.record_workspaces() as used, \
+                    torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                outputs = step.body()
+        step.launches = tuple((m, m.launches - w) for m, w in zip(KERNELS, warm)
+                              if m.launches != w)
+        for m, b, w in zip(KERNELS, before, warm):
+            m.launches = b
+            self.capture_launches[m.__name__] += w - b
+        step.graph, step.outputs, step.workspaces = graph, outputs, used
+        self.steps[step.key] = step
+        self.capture_s += time.perf_counter() - t0
+
+    def pool_bytes(self) -> int:
+        """Device memory the engine's graph pool holds (reserved segments)."""
+        if not self.graphed:
+            return 0
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == tuple(self._pool))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -135,17 +417,33 @@ class InferenceEngine:
         """batch: {"tokens": [B, S0] int32, (+"patches"/"frames")}.
         Returns (generated [B, max_new_tokens] int32, stats)."""
         run = self._generate_cached if self.kv_cache else self._generate_uncached
+        captured = self._prepare(batch, max_new_tokens)
         if self.step_meter is self.meter:
             return run(batch, max_new_tokens)
-        (out, stats), _, joules = self.meter.measure(lambda: run(batch, max_new_tokens))
-        stats.call_energy_j = joules
+        if captured:
+            self.meter.invalidate()
+        runs = []
+
+        def repeat():
+            t0 = time.perf_counter()
+            runs.append(run(batch, max_new_tokens))
+            while time.perf_counter() - t0 < self.min_window_s:
+                runs.append(run(batch, max_new_tokens))
+            return runs[-1]
+
+        (out, stats), _, joules = self.meter.measure(repeat)
+        n = len(runs)
+        stats.prefill_s = sum(st.prefill_s for _, st in runs) / n
+        stats.decode_s = sum(st.decode_s for _, st in runs) / n
+        stats.call_energy_j = joules / n
+        stats.repeats = n
         return out, stats
 
     def _generate_cached(self, batch, max_new):
         tokens = torch.as_tensor(np.asarray(batch["tokens"], np.int32), device=self.device)
         B, S0 = tokens.shape
         inputs = {"tokens": tokens, **self._extra_inputs(batch)}
-        cache_len = self._pad_len(prefix_positions(self.cfg) + S0 + max_new)
+        cache_len = self._cache_len(S0, max_new)
 
         (logits, cache), t_prefill, e_prefill = self.step_meter.measure(
             lambda: self._prefill(inputs, cache_len))
@@ -186,7 +484,7 @@ class InferenceEngine:
             L = S0 + t
             inputs = {"tokens": torch.as_tensor(buf[:, :L], device=self.device), **extra}
             # full re-forward over the exact prefix — the paper's mode
-            (logits, _cache), dt, de = self.step_meter.measure(
+            (logits, _), dt, de = self.step_meter.measure(
                 lambda i=inputs, lp=n_prefix + L: self._prefill(i, lp))
             e_total += de
             if first_step_s is None:

@@ -42,6 +42,14 @@ gradient of f32 inputs within 2e-4 of its own largest, of bf16 inputs within
 2e-2 of the f32 reference), bit for bit on repeat.  A dense, a MoE, the ssm and the hybrid
 reduced models train one step on the card as on the CPU.
 
+The engine's CUDA graphs (one per jit key of the reference's engine):
+each family's reduced model graphed against the same steps run eagerly
+on the card, logits bit-identical and greedy tokens identical in both KV
+modes, replays counted as the eager steps launch; temperature sampling
+inside a graph from the registered generator; B1's workspace kept by a
+graph captured before a larger one replaced it; a capture that meets a
+host sync, or B1 given a Python int position while capturing, raises.
+
 B2 (the analytic pass-cost surface) is held against its plain version on
 the card for the eight family branches, at rtol 1e-5 in float32 (the
 reference's gate for the TPU kernel) and 1e-12 in float64, and
@@ -62,6 +70,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # training shape, many tiles, W % 4 != 0
 from chip_smoke import RGLRU_BWD_CASES, SCAN_BWD_TOL, SSD_BWD_CASES  # noqa: E402
 from chip_smoke import grad_err as _grad_err  # noqa: E402
+from chip_smoke import graph_drive  # noqa: E402
 from chip_smoke import scan_grads as _scan_grads  # noqa: E402
 from repro_torch.checkpoint import flatten_tree
 from repro_torch.configs import get_config
@@ -960,3 +969,150 @@ def test_nvml_meter_reads_the_cards_counter(cuda):
     limit_w = float(limit.stdout.strip())
     assert j > 0 and s > 0.9
     assert idle_w < j / s <= 1.05 * limit_w, (idle_w, j / s, limit_w)
+
+
+# ---------------------------------------------------------------------------
+# The engine's CUDA graphs (serving.engine: one graph per jit key)
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ["llama2-7b-reduced", "granite-moe-3b-a800m-reduced", "mamba2-130m-reduced",
+               "recurrentgemma-9b-reduced", "seamless-m4t-large-v2-reduced",
+               "internvl2-2b-reduced"]
+
+
+def _moved(tree, device):
+    return {k: _moved(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _graph_batch(cfg, B, S, seed):
+    from repro_torch.serving.engine import frontend_inputs
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32),
+            **{k: rng.normal(size=v.shape).astype(np.float32)
+               for k, v in frontend_inputs(cfg, B).items()}}
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graphed_steps_equal_eager_ones(cuda, arch):
+    """Each family's reduced model: the engine's graphed steps against the
+    same steps run eagerly on the card (`graphed = False`): prefill and
+    decode logits bit-identical and greedy tokens identical, KV on and off;
+    the graphs' replays add to B1's, B3's and B4's counts what the eager
+    steps launch, and the warm-ups' launches go to `capture_launches`."""
+    cfg = get_config(arch)
+    params = _moved(get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                             torch.device("cpu")), cuda)
+    batch = _graph_batch(cfg, 2, 13, seed=1)
+    runs = {}
+    for graphed in (True, False):
+        eng = InferenceEngine(cfg, params, kv_cache=True, bucket=16, device=cuda)
+        eng.graphed = graphed
+        before = (kda.launches, kss.launches, krg.launches)
+        runs[graphed] = graph_drive(torch, eng, batch, 6)[:2]
+        runs[graphed] += ((kda.launches - before[0], kss.launches - before[1],
+                           krg.launches - before[2]),)
+        if graphed:
+            assert all(s.graph is not None for s in eng.steps.values())
+            assert len(eng.steps) == 2 and eng.capture_s > 0 and eng.pool_bytes() > 0
+            n = [eng.capture_launches[m.__name__] for m in (kda, kss, krg)]
+            assert n == [runs[True][2][0] // 6, runs[True][2][1], runs[True][2][2]]
+    (lg, tg, ng), (le, te, ne) = runs[True], runs[False]
+    assert ng == ne
+    for a, b in zip(lg, le):
+        assert torch.equal(a, b)
+    for a, b in zip(tg, te):
+        assert torch.equal(a, b)
+    for kv in (True, False):
+        outs = []
+        for graphed in (True, False):
+            eng = InferenceEngine(cfg, params, kv_cache=kv, bucket=16, device=cuda)
+            eng.graphed = graphed
+            outs.append(eng.generate(batch, 6)[0])
+        np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_graphed_sampling_draws_from_the_registered_generator(cuda):
+    """Sampling at temperature > 0 inside the decode graph: the engine's
+    generator is registered with the graph, so two graphed engines seeded
+    alike draw the same tokens, another seed draws others, and top-k 1
+    equals greedy decoding."""
+    from repro_torch.serving import Sampler
+    cfg = get_config("llama2-7b-reduced")
+    params = _moved(get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                             torch.device("cpu")), cuda)
+    batch = _graph_batch(cfg, 2, 9, seed=2)
+
+    def sample(seed, **kw):
+        eng = InferenceEngine(cfg, params, kv_cache=True, bucket=16, seed=seed,
+                              sampler=Sampler(**kw), device=cuda)
+        out = eng.generate(batch, 12)[0]
+        assert all(s.graph is not None for s in eng.steps.values())
+        return out
+
+    a = sample(42, temperature=1.0)
+    np.testing.assert_array_equal(a, sample(42, temperature=1.0))
+    assert not np.array_equal(a, sample(7, temperature=1.0))
+    np.testing.assert_array_equal(sample(3, temperature=1.0, top_k=1), sample(3))
+
+
+def test_b1_graph_replays_after_a_larger_capture(cuda):
+    """Graph 1 captures B1 with a small workspace; graph 2, captured on the
+    same stream at a larger shape, replaces the stream's workspace.  Graph
+    1 keeps its own (`record_workspaces`): after the freed memory is
+    handed to other work and scribbled over, its replay still equals the
+    plain version, and so does graph 2's."""
+    side = torch.cuda.Stream()
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for seed, S in ((0, 256), (1, 8192)):
+        q, k, v = inputs(4, 16, 2, 128, S, torch.bfloat16, seed=seed)
+        pos = torch.tensor(S - 1, dtype=torch.int32, device=cuda)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kda.decode_attention(q, k, v, pos)          # warm-up: sizes the workspace
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with kda.record_workspaces() as used, torch.cuda.graph(g, pool=pool, stream=side):
+            out = kda.decode_attention(q, k, v, pos)
+        graphs.append((g, out, (q, k, v, pos), used))
+    (g1, o1, x1, used1), (g2, o2, x2, used2) = graphs
+    assert used1[0] is not used2[0]                     # graph 2 grew the workspace
+    assert kda._workspaces[(cuda.index or 0, side.cuda_stream)] is used2[0]
+    junk = [torch.full((1 << 20,), -7, dtype=torch.int32, device=cuda) for _ in range(64)]
+    for g, out, x in ((g1, o1, x1), (g2, o2, x2), (g1, o1, x1)):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        close_b1(out, kda.decode_attention_plain(*x), TOL["bfloat16"])
+    del junk
+
+
+def test_capture_that_meets_a_host_sync_raises(cuda):
+    """A step whose body copies a host int to the card (the pattern the
+    prefills' `torch.tensor(n, device=...)` had) fails its capture with an
+    error, and so does B1 with a Python int position while capturing; no
+    eager fallback runs."""
+    cfg = get_config("llama2-7b-reduced")
+    api = get_api(cfg)
+    params = _moved(api.init_params(cfg, torch.Generator().manual_seed(0),
+                                    torch.device("cpu")), cuda)
+    eng = InferenceEngine(cfg, params, kv_cache=False, bucket=16, device=cuda)
+    import types as _types
+
+    def syncing_prefill(cfg_, params_, batch, **kw):
+        logits, cache = api.prefill(cfg_, params_, batch, **kw)
+        return logits + torch.tensor(0.0, device=logits.device), cache
+
+    eng.api = _types.SimpleNamespace(prefill=syncing_prefill)
+    with pytest.raises(RuntimeError):
+        eng.generate({"tokens": np.ones((2, 5), np.int32)}, 2)
+    assert not any(s.graph is not None for s in eng.steps.values())
+    torch.cuda.synchronize()
+    q, k, v = inputs(2, 4, 2, 64, 128, torch.float32, seed=3)
+    kda.decode_attention(q, k, v, 5)           # the workspace, made eagerly
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="Python int"):
+        with torch.cuda.graph(g):
+            kda.decode_attention(q, k, v, 5)
+    torch.cuda.synchronize()

@@ -18,6 +18,7 @@ from repro_torch.core.characterize import run_campaign
 from repro_torch.energy import meter as meter_mod
 from repro_torch.energy.meter import NvmlError, NvmlMeter, WallClockMeter
 from repro_torch.launch import serve as port_serve
+from repro_torch.serving import engine as engine_mod
 from repro_torch.serving.engine import GenStats, InferenceEngine
 
 UUIDS = ("GPU-0a1b2c3d-0000-1111-2222-333344445555",
@@ -45,17 +46,22 @@ class Clock:
 
 class Counter:
     """A counter that steps every `period_s`, each step adding the energy
-    drawn since the last at `watts(t)` (integrated finely)."""
+    drawn since the last at `watts(t)` (integrated finely over each step,
+    so the integral keeps its resolution however long a test runs)."""
 
     def __init__(self, clock, period_s=0.02, watts=lambda t: 100.0):
         self.clock, self.period_s, self.watts = clock, period_s, watts
         self.seen = {}
+        self.step_j = []        # the energy of each period so far
 
     def mj(self):
         self.clock.now += self.clock.read_s
         k = int(self.clock.now / self.period_s)
         if k not in self.seen:
-            self.seen[k] = int(round(self.joules(0.0, k * self.period_s) * 1e3))
+            while len(self.step_j) < k:
+                i = len(self.step_j)
+                self.step_j.append(self.joules(i * self.period_s, (i + 1) * self.period_s))
+            self.seen[k] = int(round(sum(self.step_j[:k]) * 1e3))
         return self.seen[k]
 
     def joules(self, a, b, n=20_000):
@@ -64,6 +70,36 @@ class Counter:
         t = np.linspace(a, b, n + 1)
         w = np.array([self.watts(x) for x in t])
         return float(np.sum((w[1:] + w[:-1]) / 2) * (b - a) / n)
+
+
+class LateCounter(Counter):
+    """A counter that reports each period's energy a step late, so that a
+    load's rising and falling edges reach its reading a period after they
+    happen, as the card's counter can report them."""
+
+    def mj(self):
+        self.clock.now += self.clock.read_s
+        k = int(self.clock.now / self.period_s)
+        if k not in self.seen:
+            while len(self.step_j) < k:
+                i = len(self.step_j)
+                self.step_j.append(self.joules(i * self.period_s, (i + 1) * self.period_s))
+            self.seen[k] = int(round(sum(self.step_j[:max(k - 1, 0)]) * 1e3))
+        return self.seen[k]
+
+
+def busy_counter(clock, cls=Counter, period_s=0.05):
+    """A counter over a card that draws 400 W in the stretches `work`
+    runs and 60 W between them, and `work(d)`, which runs one of `d` s."""
+    busy = []
+    counter = cls(clock, period_s=period_s,
+                  watts=lambda t: 400.0 if any(a <= t < b for a, b in busy) else 60.0)
+
+    def work(d):
+        busy.append((clock.now, clock.now + d))
+        clock.now += d
+
+    return counter, work, busy
 
 
 class StubNvml:
@@ -143,9 +179,10 @@ class TestNvmlMeter:
         """A short busy call (400 W) between idle stretches (60 W), at
         several phases of the counter's 50 ms steps: the window opens on a
         step (the previous window's closing one when the counter has not
-        stepped since), closes on the first step after the call, reads the
-        counter's energy between them, and charges its idle head and tail
-        at the idle power measured over one step before it."""
+        stepped since), closes on the second step after the call (the
+        counter may report a load's edge a step late), reads the counter's
+        energy between them, and charges its idle head and tail at the idle
+        power measured over one step before it."""
         busy = []
         period = 0.05
         counter = Counter(clock, period_s=period,
@@ -169,7 +206,7 @@ class TestNvmlMeter:
             a, b = busy[-1]
             assert s == pytest.approx(b - a, abs=1e-4)
             opened, closed = meter.last["opened"], meter.last["closed"]
-            assert on_step(closed) and 0 < closed - b < period
+            assert on_step(closed) and period < closed - b < 2 * period
             assert meter.last["idle_s"] == pytest.approx(closed - opened - s, abs=1e-9)
             if last_closed is not None and not fresh:
                 assert opened == last_closed and a - opened >= pause
@@ -179,6 +216,41 @@ class TestNvmlMeter:
             steps = [counter.seen[round(t / period)] for t in (opened, closed)]
             assert meter.last["window_j"] == (steps[1] - steps[0]) / 1e3
             assert j == pytest.approx(400.0 * s, abs=0.02)
+
+    def test_a_load_edge_reported_a_step_late(self, card, clock):
+        """On a counter that reports a load's edges a step late, a window
+        closed on the first step after the call would miss the call's last
+        part, and an idle power measured over the first step after device
+        work would hold that work's tail.  The meter keeps both of a
+        window's edges a whole step from device work: a fresh window after
+        work outside any window, then back-to-back ones, read the calls'
+        energy and the idle power."""
+        counter, work, busy = busy_counter(clock, LateCounter)
+        meter = NvmlMeter("cuda", lib=StubNvml(counter.mj))
+        work(0.33)                  # ends inside a period, before any window
+        for d in (0.12, 0.031, 0.2, 0.07):
+            _, s, j = meter.measure(lambda: work(d))
+            assert s == pytest.approx(d, abs=1e-4)
+            assert meter.idle_w == pytest.approx(60.0, rel=5e-3)
+            assert j == pytest.approx(400.0 * d, abs=0.02)
+
+    def test_work_between_windows_is_kept_out_of_the_next(self, card, clock):
+        """Device work between two windows, inside the period after the
+        first one's closing step (the engine's graph captures): after
+        `invalidate` the next window opens a whole step past that work and
+        measures the idle power anew, so the work is not charged at the
+        idle power in its head."""
+        counter, work, busy = busy_counter(clock)
+        meter = NvmlMeter("cuda", lib=StubNvml(counter.mj))
+        meter.measure(lambda: work(0.1))
+        closed = meter.last["closed"]
+        work(0.02)
+        assert int(clock.now / 0.05) == int(closed / 0.05)     # the counter has not stepped
+        meter.invalidate()
+        _, s, j = meter.measure(lambda: work(0.1))
+        assert meter.last["opened"] >= busy[-2][1] + 0.05
+        assert meter.idle_w == pytest.approx(60.0, rel=5e-3)
+        assert j == pytest.approx(400.0 * s, abs=0.02)
 
     def test_raises_on_a_nonzero_return_code(self, card, clock):
         for name in ("nvmlInit_v2", "nvmlDeviceGetCount_v2", "nvmlDeviceGetUUID"):
@@ -256,6 +328,83 @@ class TestEngineMetering:
         assert meter.calls == 1
         assert stats.energy_j == 7.5 and stats.call_energy_j == 7.5
         assert stats.prefill_s > 0 and stats.decode_s > 0
+        ref, _ = InferenceEngine(cfg, params, kv_cache=kv_cache, bucket=8,
+                                 device="cpu").generate({"tokens": toks}, 4)
+        np.testing.assert_array_equal(out, ref)
+
+    def fake_generate(self, eng, work, d, out):
+        """Replace `eng`'s KV-off run by `work(d)` (one call's device work
+        on the scripted clock) returning `out` and its stats."""
+        def run(batch, max_new):
+            work(d)
+            return out, GenStats(prefill_s=d / 4, decode_s=3 * d / 4, tau_in=8,
+                                 tau_out=max_new)
+        eng._generate_uncached = run
+
+    def test_short_calls_repeat_inside_one_window(self, small, card, clock, monkeypatch):
+        """With `min_window_s` a per-call meter's window holds the call
+        repeated until the repeats have lasted that long; the stats carry
+        one call's mean seconds and joules and the repeats."""
+        cfg, params = small
+        monkeypatch.setattr(engine_mod, "time", clock)
+        counter, work, busy = busy_counter(clock)
+        meter = NvmlMeter("cuda", lib=StubNvml(counter.mj))
+        eng = InferenceEngine(cfg, params, kv_cache=False, meter=meter, min_window_s=0.25,
+                              bucket=8, device="cpu")
+        out = np.arange(8, dtype=np.int32).reshape(2, 4)
+        for d, n in ((0.03, 9), (0.1, 3), (0.3, 1)):
+            self.fake_generate(eng, work, d, out)
+            got, stats = eng.generate({"tokens": np.ones((2, 8), np.int32)}, 4)
+            assert got is out and stats.repeats == n
+            assert stats.runtime_s == pytest.approx(d)
+            assert stats.energy_j == pytest.approx(400.0 * d, abs=0.02 / n)
+            assert meter.last["window_j"] == pytest.approx(
+                n * stats.energy_j + 60.0 * meter.last["idle_s"], abs=0.02)
+
+    def test_a_capture_before_the_window_invalidates_its_step(self, small, card, clock,
+                                                                monkeypatch):
+        """When `_prepare` captured graphs (device work), generate has the
+        meter open its window a step past it rather than on the previous
+        window's closing step."""
+        cfg, params = small
+        monkeypatch.setattr(engine_mod, "time", clock)
+        counter, work, busy = busy_counter(clock)
+        meter = NvmlMeter("cuda", lib=StubNvml(counter.mj))
+        eng = InferenceEngine(cfg, params, kv_cache=False, meter=meter, bucket=8,
+                              device="cpu")
+        self.fake_generate(eng, work, 0.1, None)
+        eng.generate({"tokens": np.ones((2, 8), np.int32)}, 4)
+        eng._prepare = lambda batch, max_new: work(0.02) or True
+        _, stats = eng.generate({"tokens": np.ones((2, 8), np.int32)}, 4)
+        assert meter.last["opened"] >= busy[-2][1] + 0.05
+        assert stats.energy_j == pytest.approx(400.0 * 0.1, abs=0.02)
+
+    @pytest.mark.parametrize("kv_cache", [True, False])
+    def test_repeated_calls_give_the_calls_tokens(self, small, kv_cache, monkeypatch):
+        """A generate repeated inside its window returns the tokens of one
+        unrepeated call, and charges each repeat the window's joules over
+        their count."""
+        cfg, params = small
+
+        class TickClock:
+            now = 0.0
+
+            def perf_counter(self):
+                self.now += 0.01
+                return self.now
+
+        class CallMeter:
+            per_call = True
+
+            def measure(self, fn):
+                return fn(), 1.0, 9.0
+
+        monkeypatch.setattr(engine_mod, "time", TickClock())
+        eng = InferenceEngine(cfg, params, kv_cache=kv_cache, meter=CallMeter(),
+                              min_window_s=0.5, bucket=8, device="cpu")
+        toks = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
+        out, stats = eng.generate({"tokens": toks}, 4)
+        assert stats.repeats > 1 and stats.energy_j == pytest.approx(9.0 / stats.repeats)
         ref, _ = InferenceEngine(cfg, params, kv_cache=kv_cache, bucket=8,
                                  device="cpu").generate({"tokens": toks}, 4)
         np.testing.assert_array_equal(out, ref)
