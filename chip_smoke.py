@@ -148,37 +148,49 @@ Phases, each of which must pass:
               max_new over the served requests;
  11. train    the training path (`launch.steps.build_train_step`, AdamW,
               bf16 weights drawn on the card, `lm_train_batches(kind=
-              "markov")`): (a) qwen3-1.7b at full width and depth, remat
-              on, batch 64 x 128 tokens in two microbatches of 32
-              accumulated in f32, 6 steps; (b) granite-moe-3b-a800m at full
-              width and depth, batch 32 x 128 (one microbatch), 4 steps,
-              every gradient finite, the pairs dropped past capacity per
-              step, and no scatter or index_add in the dispatch/combine
-              backward; each step's loss, wall and NVML J, step 2 under
-              the profiler (device busy share), then tokens/s and the
-              model-FLOP share (6 N T, N active less the input embedding)
-              of steps 3 on against the H100 SXM's dense bf16 peak, and
-              the peak memory;
-              losses finite and the last below the first; (c) resume:
-              qwen3-1.7b at full width cut to 2 layers, 4 steps straight
-              against 2 + save + load + 2 with deterministic algorithms on,
-              equal bit for bit; (d) one step of the reduced dense, moe
-              (granite, deepseek-v3), encdec and vlm models on the card
-              against the CPU, mamba2's and recurrentgemma's through B3's
-              and B4's backward kernels; (e) the training CLI,
-              `launch.train.main`, at qwen3-1.7b's full size on its default
-              device: 4 steps that checkpoint, then 2 that resume from it,
-              both exiting 0, and 4 steps of mamba2-130m (batch 16 x 512);
-              (f) mamba2-130m at full size, remat on, batch 16 x 512, 6
-              steps, and (g) recurrentgemma-9b at full width cut to 6 of
-              its 38 layers (TRAIN_DEPTH_CUTS: AdamW at 38 layers needs
-              ~167 GB), batch 16 x 256, 4 steps, each printed as (a) is,
-              with B3's or B4's forward and backward shares of the
-              profiled step's busy time, and each step's launches held to
-              layers x (2 forward, the pass and remat's recompute; 1
-              backward).  B1 and B2 launch 0 times in the phase; B3's and
-              B4's forward and backward launches equal what the layers
-              run need;
+              "markov")`), run through `launch.steps.compile_train_step`,
+              the port of the reference's `jax.jit(train_step,
+              donate_argnums=(0, 1))`: one CUDA graph per input
+              signature, captured after a warm-up step and replayed:
+              (a) qwen3-1.7b at full width and depth, remat on, batch 64 x
+              128 tokens in two microbatches of 32 accumulated in f32; (b)
+              granite-moe-3b-a800m at full width and depth, batch 32 x 128
+              (one microbatch), every gradient finite, the pairs dropped
+              past capacity per step, and no scatter or index_add in the
+              dispatch/combine backward; each cell runs EAGER_STEPS eager
+              steps (the same step bodies, `graphed=False`), then 4
+              graphed ones from the eager steps' params; in each mode
+              each step's loss, wall and NVML J, step 2 under the profiler
+              (device busy; idle share against the later steps' wall),
+              tokens/s and the model-FLOP share (6 N T, N active less the
+              input embedding) against the H100 SXM's dense bf16 peak, the
+              peak memory; the graph's warm-up and capture seconds and
+              pool GiB; losses finite and the last below the first, the
+              graphed idle share below the eager one; (c) qwen3-1.7b at
+              full width cut to 2 layers, deterministic algorithms on: 4
+              graphed steps bit-identical to 4 eager ones, and the same
+              compiled step over 2 steps from fresh trees + save + load +
+              2, equal to the 4 straight bit for bit (the checkpoint in a
+              `launch.train` step directory, for (e)); (d) two compiled
+              steps (a warm-up step and a replay) of the reduced dense,
+              moe (granite, deepseek-v3), encdec, vlm, ssm and hybrid
+              models on the card against the eager CPU step, mamba2's and
+              recurrentgemma's through B3's and B4's backward kernels; (e)
+              the training CLI, `launch.train.main`, at qwen3-1.7b's full
+              size on its default device (4 steps, no checkpoint), the
+              trainer's resume (`launch.train.train` of (c)'s 2 layers,
+              resuming from (c)'s step-2 checkpoint for 2 steps), and 4
+              steps of mamba2-130m (batch 16 x 512); (f) mamba2-130m at
+              full size, remat on, batch 16 x 512, and (g)
+              recurrentgemma-9b at full width cut to 6 of its 38 layers
+              (TRAIN_DEPTH_CUTS: AdamW at 38 layers needs ~167 GB), batch
+              16 x 256, each run as (a) is, with B3's or B4's forward and
+              backward shares of each profiled step's busy time, and each
+              step's launches (a replay adds what its capture recorded)
+              held to layers x (2 forward, the pass and remat's
+              recompute; 1 backward).  B1 and B2 launch 0 times in the
+              phase; B3's and B4's forward and backward launches equal
+              what the layers run need;
  12. sharding and the dry run, on a one-rank NCCL group and a (1, 1)
               ("data", "model") mesh: (a) qwen3-1.7b trained as phase 11
               (a) trains it, 2 steps on FSDP DTensors under the train
@@ -250,12 +262,13 @@ DEPTH_CUTS = {"mixtral-8x7b": 4, "deepseek-v3-671b": 4, "seamless-m4t-large-v2":
 ENCDEC_VLM_ARCHS = ["seamless-m4t-large-v2", "internvl2-2b"]
 ENCDEC_VLM_CHAR_MAX_TOKENS = 16
 SERVE_QUERIES = 24
-# phase 11 (training): (arch, batch, seq, steps) at full width and depth
-TRAIN_DENSE = ("qwen3-1.7b", 64, 128, 6)        # two microbatches of 32
+# phase 11 (training): (arch, batch, seq, graphed steps) at full width and
+# depth, after EAGER_STEPS eager ones
+TRAIN_DENSE = ("qwen3-1.7b", 64, 128, 4)        # two microbatches of 32
 TRAIN_MOE = ("granite-moe-3b-a800m", 32, 128, 4)  # one microbatch
 TRAIN_RESUME_LAYERS = 2         # qwen3-1.7b's 28 layers cut for the resume check
 TRAIN_LR = 3e-4                 # repro.launch.train's default
-TRAIN_SSM = ("mamba2-130m", 16, 512, 6)        # 8 of B3's 64-step chunks a row
+TRAIN_SSM = ("mamba2-130m", 16, 512, 4)        # 8 of B3's 64-step chunks a row
 TRAIN_HYBRID = ("recurrentgemma-9b", 16, 256, 4)  # one microbatch
 # recurrentgemma-9b's 38 layers with AdamW need ~167 GB, which fits no 80 GB
 # card: phase 11 (g) trains it at full width cut to two (rec, rec, attn) units
@@ -2727,13 +2740,14 @@ def train_batches(torch, cfg, n, batch, seq, seed, device="cuda") -> list:
             for b in lm_train_batches(n, batch, seq, cfg.vocab_size, seed=seed, kind="markov")]
 
 
-def _train_breakdown(prof, label, shares=None):
-    """Where the profiled step's device time goes: the optimizer's update
-    (the `optimizer_update` range), the GEMMs (cuBLAS/CUTLASS kernels by
-    name), the kernels named in `shares` (label -> substrings of their
-    names) and the top kernels.  Returns the step's device busy ms (every
-    kernel; the step starts and ends synchronized), None where the
-    profiler saw no device time."""
+def _train_breakdown(prof, label, shares=None, ranges=True):
+    """Where the profiled step's device time goes: the GEMMs (cuBLAS/CUTLASS
+    kernels by name), with `ranges` the optimizer's update (the
+    `optimizer_update` range, which only an eager step shows: a graph
+    replay runs no Python), the kernels named in `shares` (label ->
+    substrings of their names) and the top kernels.  Returns the step's
+    device busy ms (every kernel; the step starts and ends synchronized),
+    None where the profiler saw no device time."""
     from torch.autograd import DeviceType
     rows = prof.key_averages()
     # the range also shows on the device's timeline, where it is no kernel
@@ -2742,47 +2756,94 @@ def _train_breakdown(prof, label, shares=None):
     if not kernels:
         return None
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    update = sum(e.device_time_total for e in rows if e.key == "optimizer_update"
-                 and e.device_type == DeviceType.CPU) / 1e3
     gemm = sum(e.self_device_time_total for e in kernels
                if any(k in e.key.lower() for k in ("gemm", "cutlass", "nvjet", "xmma"))) / 1e3
+    update = ""
+    if ranges:
+        ms = sum(e.device_time_total for e in rows if e.key == "optimizer_update"
+                 and e.device_type == DeviceType.CPU) / 1e3
+        update = f", the optimizer's update {ms:.3f} ms ({ms / busy:.3f})"
     print(f"[train] {label}: the profiled step's device time {busy:.3f} ms: GEMM kernels "
-          f"{gemm:.3f} ms ({gemm / busy:.3f}), the optimizer's update {update:.3f} ms "
-          f"({update / busy:.3f}), {sum(e.count for e in kernels)} kernels")
+          f"{gemm:.3f} ms ({gemm / busy:.3f}){update}, {sum(e.count for e in kernels)} kernels")
     for name, keys in (shares or {}).items():
         mine = [e for e in kernels if any(k in e.key for k in keys)]
         ms = sum(e.self_device_time_total for e in mine) / 1e3
         print(f"[train] {label}: {name} kernels {ms:.3f} ms ({ms / busy:.4f} of the busy "
               f"time), {sum(e.count for e in mine)} launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8 if ranges else 4]:
         print(f"[train]   {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}")
     return busy
 
 
-def train_cell(torch, label, cfg, batch, seq, steps, meter, *, probe=None,
-               shares=None) -> dict:
-    """`steps` AdamW steps of `cfg` at full width on the card through
-    `build_train_step`, random bf16 weights drawn on the card (seed 0).
-    Step 1 warms up; step 2 runs under the profiler (its device busy ms
-    and where it goes); steps 3 on run without it, and tokens/s, joules
-    and the model-FLOP share are taken from their walls.  Prints per step
-    the loss, wall ms and NVML J (`meter`, a NvmlMeter), then the peak of
-    max_memory_allocated.
+# A cell's eager steps, before its graphed ones: a warm-up, a profiled
+# step and a timed one (the graphed steps: warm-up and capture, a profiled
+# replay, timed replays)
+EAGER_STEPS = 3
+
+
+def _run_steps(torch, step, params, state, batches, meter, prof, watch, first) -> tuple:
+    """`step` over `batches`, synchronized: the first two timed on the host
+    clock (a warm-up, then one under `prof`), the later ones metered by
+    `meter` (each NVML window costs ~0.3 s of waiting for the counter's
+    steps); `watch` (a probe) told which step is profiled and when each
+    is done (numbered from `first`).  Returns (losses, walls ms, joules
+    (None where not metered), params, state)."""
+    losses, walls, joules = [], [], []
+    for i, b in enumerate(batches):
+        if watch:
+            watch.profiled = i == 1
+        if i == 1:
+            prof.start()
+        run = lambda: step(params, state, b)             # noqa: E731
+        if i >= 2:
+            (loss, params, state), dt, j = meter.measure(run)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, params, state = run()
+            torch.cuda.synchronize()
+            dt, j = time.perf_counter() - t0, None
+        losses.append(float(loss))
+        walls.append(dt * 1e3)
+        joules.append(j)
+        if i == 1:
+            prof.stop()
+        if watch:
+            watch.step_done(first + i)
+    return losses, walls, joules, params, state
+
+
+def train_cell(torch, label, cfg, batch, seq, steps, meter, *, probe=None, shares=None,
+               idle_check=True) -> dict:
+    """AdamW steps of `cfg` at full width on the card, random bf16 weights
+    drawn on the card (seed 0): EAGER_STEPS eager steps
+    (`compile_train_step(graphed=False)`: the same step bodies run
+    eagerly), then `steps` through the compiled step
+    (`launch.steps.compile_train_step`: step 1 runs the warm-up step and
+    captures the CUDA graph, each later step replays it), training on from
+    the eager steps' params.  In each mode step 1 warms up, step 2 runs
+    under the profiler (device busy ms; the eager step also by range) and
+    steps 3 on without it: their wall, tokens/s, NVML J and model-FLOP
+    share, and idle share = 1 - busy / that wall.  Prints per step the
+    loss, wall ms and, from step 3, NVML J (`meter`, a NvmlMeter), the
+    graph's warm-up and capture seconds and pool GiB, each mode's
+    max_memory_allocated, and the graphed against the eager numbers.
+    With `idle_check` the graphed idle share must be below the eager one.
     The model FLOPs are 6 N T, N the parameters a token touches (MoE: the
     active ones) less the input embedding (a lookup, no matrix FLOPs; the
     share with it is printed beside).  `probe(opt)`, if given, is a
-    context manager active over the steps; its `profiled` is set before
+    context manager active over both modes; its `profiled` is set before
     each step and its `step_done(i)` runs after each.  `shares` goes to
-    `_train_breakdown`.  Returns the losses and the probe."""
+    `_train_breakdown`.  Returns the losses, the probe and each mode's
+    numbers."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import build_train_step, compile_train_step
     from repro_torch.models import get_api
     from repro_torch.models.registry import active_params
     api = get_api(cfg)
     n_params, n_active = api.count_params(cfg), active_params(cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_embed = 0 if cfg.tie_embeddings else params["embed"].numel()
     step_fn, opt = build_train_step(cfg, lr=TRAIN_LR)
@@ -2794,82 +2855,114 @@ def train_cell(torch, label, cfg, batch, seq, steps, meter, *, probe=None,
             return update(*args)
 
     object.__setattr__(opt, "update", ranged_update)
-    batches = train_batches(torch, cfg, steps, batch, seq, seed=0)
+    batches = train_batches(torch, cfg, EAGER_STEPS + steps, batch, seq, seed=0)
     mb = cfg.microbatch if cfg.microbatch and cfg.microbatch < batch else batch
     print(f"[train] {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B parameters ({n_active / 1e9:.3f} B active, "
           f"{cfg.param_dtype}), {cfg.optimizer}, remat {cfg.remat}, batch {batch} x seq "
           f"{seq} in microbatches of {mb} ({batch // mb} accumulated in "
-          f"{cfg.grad_accum_dtype}), lr {TRAIN_LR}")
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    losses, walls, joules = [], [], []
-    torch.cuda.synchronize()
-    with probe(opt) if probe else contextlib.nullcontext() as watch:
-        for i, b in enumerate(batches):
-            if watch:
-                watch.profiled = i == 1
-            if i == 1:
-                prof.start()
-            (loss, params, state), dt, j = meter.measure(
-                lambda p=params, st=state, b=b: step_fn(p, st, b))
-            losses.append(float(loss))
-            walls.append(dt * 1e3)
-            joules.append(j)
-            if i == 1:
-                prof.stop()
-            if watch:
-                watch.step_done(i)
-    peak = torch.cuda.max_memory_allocated()
-    busy = _train_breakdown(prof, label, shares)
+          f"{cfg.grad_accum_dtype}), lr {TRAIN_LR}; {EAGER_STEPS} eager steps, then "
+          f"{steps} through the compiled step (CUDA graphs)")
     tokens = batch * seq
-    step_s = sum(walls[2:]) / (steps - 2) / 1e3
-    for i in range(steps):
-        if i == 1:
-            dev = (f"under the profiler: device busy {busy:.3f} ms, idle share "
-                   f"{1 - busy / walls[i]:.3f} (against the unprofiled steps' wall "
-                   f"{1 - busy / (step_s * 1e3):.3f})" if busy else
-                   "under the profiler: device busy not measured (it saw no device time)")
-        else:
-            dev = "warm-up, not profiled" if i == 0 else "not profiled"
-        print(f"[train] {label} step {i + 1}: loss {losses[i]:.5f}, wall {walls[i]:.3f} ms"
-              f", NVML J {joules[i]:.1f}, {dev}")
     flops = 6 * (n_active - n_embed) * tokens
-    print(f"[train] {label}: steps 3-{steps} (not profiled): {step_s * 1e3:.3f} ms "
-          f"a step, {tokens / step_s:.1f} tokens/s, model-FLOP share "
-          f"{flops / (step_s * BF16_DENSE_PEAK):.4f} (6 N T = {flops:.4e} FLOP a step, N = "
-          f"{(n_active - n_embed) / 1e9:.3f} B without the input embedding; with it "
-          f"{6 * n_active * tokens / (step_s * BF16_DENSE_PEAK):.4f}; over "
-          f"{BF16_DENSE_PEAK:.4g} FLOP/s, the H100 SXM's dense bf16 peak; this card: "
-          f"{nvidia_smi()})")
-    print(f"[train] {label}: NVML J a step (steps 3-{steps}) "
-          f"{sum(joules[2:]) / (steps - 2):.1f}")
-    print(f"[train] {label}: max_memory_allocated GiB={peak / 2**30}")
+    losses, modes = [], {}
+    with probe(opt) if probe else contextlib.nullcontext() as watch:
+        for graphed, run in ((False, batches[:EAGER_STEPS]), (True, batches[EAGER_STEPS:])):
+            mode = "graphed" if graphed else "eager"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step = compile_train_step(step_fn, device="cuda", graphed=graphed)
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            torch.cuda.synchronize()
+            got, walls, joules, params, state = _run_steps(torch, step, params, state, run,
+                                                           meter, prof, watch, len(losses))
+            peak = torch.cuda.max_memory_allocated()
+            graph = (step.warmup_s, step.capture_s, step.pool_bytes() / 2**30,
+                     len(step.steps)) if graphed else None
+            del step                                 # its graph and pool go with it
+            busy = _train_breakdown(prof, f"{label} {mode}", shares, ranges=not graphed)
+            del prof
+            n = len(run)
+            wall = sum(walls[2:]) / (n - 2)
+            m = modes[mode] = {"wall_ms": wall, "busy_ms": busy, "peak_gib": peak / 2**30,
+                               "idle": 1 - busy / wall if busy else None,
+                               "joules": sum(joules[2:]) / (n - 2), "graph": graph}
+            for i in range(n):
+                if i == 0:
+                    dev = ("warm-up step, then the capture (warm-up s={:.3f}, capture s={:.3f})"
+                           .format(*graph[:2]) if graphed else "warm-up, not profiled")
+                elif i == 1:
+                    dev = (f"under the profiler: device busy {busy:.3f} ms" if busy else
+                           "under the profiler: device busy not measured (it saw no device "
+                           "time)")
+                else:
+                    dev = "not profiled"
+                kind = "replay, " if graphed and i else ""
+                nvml = "not metered" if joules[i] is None else f"{joules[i]:.1f}"
+                print(f"[train] {label} {mode} step {i + 1}: loss {got[i]:.5f}, wall "
+                      f"{walls[i]:.3f} ms, NVML J {nvml}, {kind}{dev}")
+            idle = f"idle share {m['idle']:.3f}" if busy else "idle share not measured"
+            print(f"[train] {label} {mode}: steps 3-{n} (not profiled): {wall:.3f} ms a step, "
+                  f"device busy {busy or float('nan'):.3f} ms (step 2), {idle}, "
+                  f"{tokens / wall * 1e3:.1f} tokens/s, NVML J a step {m['joules']:.1f}, "
+                  f"model-FLOP share {flops / (wall / 1e3 * BF16_DENSE_PEAK):.4f} (6 N T = "
+                  f"{flops:.4e} FLOP a step, N = {(n_active - n_embed) / 1e9:.3f} B without "
+                  f"the input embedding; with it "
+                  f"{6 * n_active * tokens / (wall / 1e3 * BF16_DENSE_PEAK):.4f}; over "
+                  f"{BF16_DENSE_PEAK:.4g} FLOP/s, the H100 SXM's dense bf16 peak), "
+                  f"max_memory_allocated GiB={peak / 2**30}")
+            if graphed:
+                print(f"[train] {label} graphed: {graph[3]} graph, warm-up s={graph[0]}, "
+                      f"capture s={graph[1]}, pool GiB={graph[2]}")
+            losses += got
+    e, g = modes["eager"], modes["graphed"]
+    busy_part = (f", wall / busy {g['wall_ms'] / g['busy_ms']:.4f}, idle share "
+                 f"{e['idle']:.3f} -> {g['idle']:.3f}" if e["busy_ms"] and g["busy_ms"] else "")
+    print(f"[train] {label}: graphed against eager (this card: {nvidia_smi()}): wall "
+          f"{e['wall_ms']:.3f} -> {g['wall_ms']:.3f} ms ({g['wall_ms'] / e['wall_ms']:.3f})"
+          f"{busy_part}, NVML J a step {e['joules']:.1f} -> {g['joules']:.1f}, peak GiB "
+          f"{e['peak_gib']:.3f} -> {g['peak_gib']:.3f} ({g['peak_gib'] / e['peak_gib']:.3f}), "
+          f"capture s / eager step s {g['graph'][1] / e['wall_ms'] * 1e3:.3f}")
     check(all(math.isfinite(x) for x in losses), f"{label}: a loss is not finite: {losses}")
     check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
+    check(g["graph"][3] == 1, f"{label}: {g['graph'][3]} graphs for one batch shape")
+    if idle_check and e["busy_ms"] and g["busy_ms"]:
+        check(g["idle"] < e["idle"], f"{label}: graphed idle share {g['idle']:.3f} is not "
+                                     f"below the eager {e['idle']:.3f}")
     del params, state, batches
-    return {"losses": losses, "probe": watch}
+    return {"losses": losses, "probe": watch, "modes": modes}
 
 
 class MoEProbe:
     """Over a MoE model's training steps: the pairs dropped past capacity
     in each step's forward (`moe.dispatch_tables` wrapped), whether every
-    gradient handed to the optimizer is finite (both kept on the card, so
-    no step waits on the host for them), and, in the profiled steps only,
-    the aten ops that `moe._Dispatch.backward` and `moe._Combine.backward`
-    run (a TorchDispatchMode around each)."""
+    gradient handed to the optimizer is finite, and, in the profiled eager
+    step only, the aten ops that `moe._Dispatch.backward` and
+    `moe._Combine.backward` run (a TorchDispatchMode around each).  The
+    wrappers run with the step's Python: at every eager step and a
+    graphed program's warm-up, whose tensors are that step's; and at its
+    capture, whose tensors live in the graph's pool and are rewritten by
+    each replay, so `step_done` reads them after each step."""
 
     def __init__(self, torch, cfg, opt):
         from repro_torch.models import moe
         self.torch, self.moe, self.opt = torch, moe, opt
         self.n_moe = cfg.n_layers - cfg.n_dense_layers
-        self.tables, self.mark = [], 0
+        self.live = {"tables": [], "finite": []}       # eager runs of the step's Python
+        self.captured = {"tables": [], "finite": []}   # a capture's: rewritten by replays
+        self.marks = {"tables": 0, "finite": 0}
         self.drops, self.finite = [], []
         self.ops = collections.Counter()
         self.profiled = False
 
+    def _log(self, kind, t):
+        capturing = self.torch.cuda.is_current_stream_capturing()
+        (self.captured if capturing else self.live)[kind].append(t)
+
     def _tables(self, eidx, n_experts, capacity):
         tab = self.saved["tables"](eidx, n_experts, capacity)
-        self.tables.append((~tab.keep).sum())
+        self._log("tables", (~tab.keep).sum())
         return tab
 
     def _logged(self, fn):
@@ -2890,18 +2983,27 @@ class MoEProbe:
 
     def _update(self, grads, state, params, lr):
         from repro_torch.checkpoint import flatten_tree
-        self.finite.append(self.torch.stack(
+        self._log("finite", self.torch.stack(
             [self.torch.isfinite(g).all() for _, g in flatten_tree(grads)]).all())
         return self.saved["update"](grads, state, params, lr)
+
+    def _step(self, kind):
+        """The step's records of `kind`: those its Python made, or, for a
+        replay (which ran none), the capture's, which it rewrote."""
+        rec = self.live[kind][self.marks[kind]:]
+        self.marks[kind] = len(self.live[kind])
+        return rec or self.captured[kind]
 
     def step_done(self, i):
         """The step's forward made the first n_moe dispatches (one
         microbatch; remat repeats them in the backward)."""
-        rec = self.tables[self.mark:]
-        self.mark = len(self.tables)
+        rec = self._step("tables")
         check(len(rec) in (self.n_moe, 2 * self.n_moe),
               f"step {i + 1}: {len(rec)} dispatches for {self.n_moe} MoE layers")
-        self.drops.append(sum(rec[:self.n_moe]))
+        self.drops.append(int(sum(rec[:self.n_moe])))
+        finite = self._step("finite")
+        check(len(finite) == 1, f"step {i + 1}: {len(finite)} optimizer updates")
+        self.finite.append(bool(finite[0]))
 
     def __enter__(self):
         moe = self.moe
@@ -2919,12 +3021,15 @@ class MoEProbe:
         moe._Dispatch.backward = staticmethod(self.saved["dispatch"])
         moe._Combine.backward = staticmethod(self.saved["combine"])
         object.__setattr__(self.opt, "update", self.saved["update"])
+        self.live = self.captured = None       # the capture's tensors hold pool memory
 
 
 class ScanProbe:
     """Over a scan family's training steps: each step's launches of B3's or
     B4's forward and backward kernels, held to layers x (1 forward, 1 more
-    for remat's recompute; 1 backward) x microbatches."""
+    for remat's recompute; 1 backward) x microbatches.  A graph replay
+    adds the launches its capture recorded to the counts, so a replayed
+    step is held like an eager one."""
 
     def __init__(self, mod, kernel, layers, passes, microbatches):
         self.mod, self.kernel = mod, kernel
@@ -2957,19 +3062,23 @@ def scan_layers(cfg) -> int:
     return cfg.n_layers if cfg.family == "ssm" else hybrid.n_rec_layers(cfg)
 
 
-def train_scan_cell(torch, cfg, kernel, mod, batch, seq, steps, meter, full_layers) -> tuple:
+def train_scan_cell(torch, cfg, kernel, mod, batch, seq, steps, meter, full_layers,
+                    idle_check=True) -> tuple:
     """(f)/(g): `train_cell` of mamba2 (B3) or recurrentgemma (B4) with the
-    scan's launches held each step and its kernels' share of the profiled
-    step.  Returns (forward, backward) launches over the cell."""
+    scan's launches held each step, eager and graphed, and its kernels'
+    share of each profiled step.  Returns (forward, backward) launches
+    over the cell."""
     mb = cfg.microbatch if cfg.microbatch and cfg.microbatch < batch else batch
     layers = scan_layers(cfg)
     label = cfg.name if cfg.n_layers == full_layers else (
         f"{cfg.name} ({cfg.n_layers} of {full_layers} layers)")
     out = train_cell(torch, label, cfg, batch, seq, steps, meter,
                      probe=lambda opt: ScanProbe(mod, kernel, layers, 1 + cfg.remat, batch // mb),
-                     shares={k: v for k, v in SCAN_KERNEL_KEYS.items() if k.startswith(kernel)})
+                     shares={k: v for k, v in SCAN_KERNEL_KEYS.items() if k.startswith(kernel)},
+                     idle_check=idle_check)
     per_step = out["probe"].per_step
-    print(f"[train] {label}: {kernel} launches (forward, backward) per step {per_step}, "
+    print(f"[train] {label}: {kernel} launches (forward, backward) per step {per_step} "
+          f"({EAGER_STEPS} eager, then {steps} graphed: a warm-up step and replays), "
           f"{layers} layers x ({1 + cfg.remat} forward: remat {cfg.remat}; 1 backward) x "
           f"{batch // mb} microbatch(es)")
     return tuple(map(sum, zip(*per_step)))
@@ -2978,8 +3087,9 @@ def train_scan_cell(torch, cfg, kernel, mod, batch, seq, steps, meter, full_laye
 def train_cli(torch, arch, batch, seq, steps, mod, kernel) -> tuple:
     """(e) `repro_torch.launch.train.main` on its default device, no
     checkpoint: must return 0 with finite losses, the scan launched
-    layers x (1 + remat forward, 1 backward) x steps times.  Returns those
-    (forward, backward) launches."""
+    layers x (1 + remat forward, 1 backward) x steps times (its compiled
+    step's warm-up step and replays).  Returns those (forward, backward)
+    launches."""
     import io
     from repro_torch.configs import get_config
     from repro_torch.launch import train as train_mod
@@ -3007,33 +3117,52 @@ def train_cli(torch, arch, batch, seq, steps, mod, kernel) -> tuple:
     return got
 
 
-def train_resume(torch, cfg, full_layers, batch, seq) -> None:
-    """(c) 4 steps straight against 2, a checkpoint saved, loaded and 2 more,
-    under torch.use_deterministic_algorithms(True): parameters and
-    optimizer state must be equal bit for bit."""
+def train_resume(torch, cfg, full_layers, batch, seq, ckpt_dir) -> None:
+    """(c) Under torch.use_deterministic_algorithms(True), from the same
+    weights and batches: 4 steps of the compiled step (a warm-up step,
+    then replays of its CUDA graph) against 4 eager steps
+    (`graphed=False`): losses, params and AdamW state bit-identical.  Then
+    the same compiled step is handed fresh trees (copied into its
+    statics) for 2 steps, a checkpoint is saved (as `launch.train` saves it,
+    step 2 of `ckpt_dir`, which (e) resumes from) and loaded, and 2 more
+    steps run from the loaded trees (copied in): params and state must
+    equal the 4 straight steps' bit for bit."""
     from repro_torch import checkpoint as ckptlib
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import build_train_step, compile_train_step
     from repro_torch.models import get_api
     api = get_api(cfg)
     step_fn, opt = build_train_step(cfg, lr=TRAIN_LR)
     batches = train_batches(torch, cfg, 4, batch, seq, seed=1)
-    path = ROOT / "build" / "train_resume_ckpt"
+    path = ckptlib.step_path(ckpt_dir, 2)
 
     def fresh():
         params = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
         return params, opt.init(params)
 
+    def flat(p, s):
+        return dict(ckptlib.flatten_tree({"p": p, "s": s}))
+
+    def differ(a, b):
+        return [k for k in a if not (a.keys() == b.keys() and torch.equal(a[k], b[k]))]
+
     gc.collect()
     torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(True)
     try:
-        p1, s1 = fresh()
-        for b in batches:
-            _, p1, s1 = step_fn(p1, s1, b)
-        straight = dict(ckptlib.flatten_tree({"p": p1, "s": s1}))
+        compiled = compile_train_step(step_fn, device="cuda")
+        runs = {}
+        for graphed in (True, False):
+            step = compiled if graphed else compile_train_step(step_fn, device="cuda",
+                                                               graphed=False)
+            p, s = fresh()
+            losses = [float(step(p, s, b)[0]) for b in batches]
+            # the compiled step's statics are reused below: keep a copy
+            runs[graphed] = (losses, {k: v.clone() if graphed else v
+                                      for k, v in flat(p, s).items()})
+            del step, p, s
         p2, s2 = fresh()
         for b in batches[:2]:
-            _, p2, s2 = step_fn(p2, s2, b)
+            _, p2, s2 = compiled(p2, s2, b)
         t0 = time.perf_counter()
         ckptlib.save_checkpoint(path, {"params": p2, "opt_state": s2}, step=2,
                                 metadata={"arch": cfg.name})
@@ -3042,126 +3171,177 @@ def train_resume(torch, cfg, full_layers, batch, seq) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        tree, step, _ = ckptlib.load_checkpoint(path, device="cuda")
+        tree, step_no, _ = ckptlib.load_checkpoint(path, device="cuda")
         t_load = time.perf_counter() - t0
         size = sum(f.stat().st_size for f in path.iterdir())
         p3, s3 = tree["params"], tree["opt_state"]
         for b in batches[2:]:
-            _, p3, s3 = step_fn(p3, s3, b)
-        resumed = dict(ckptlib.flatten_tree({"p": p3, "s": s3}))
+            _, p3, s3 = compiled(p3, s3, b)
+        resumed = flat(p3, s3)
+        info = (len(compiled.steps), compiled.warmup_s, compiled.capture_s,
+                compiled.pool_bytes() / 2**30)
     finally:
         torch.use_deterministic_algorithms(False)
-        shutil.rmtree(path, ignore_errors=True)
-    same_keys = straight.keys() == resumed.keys()
-    differ = [k for k in straight if not (same_keys and torch.equal(straight[k], resumed[k]))]
+    (lg, straight), (le, eager) = runs[True], runs[False]
+    vs_eager, vs_resumed = differ(straight, eager), differ(straight, resumed)
     n_leaves = len(straight)
-    del p1, s1, tree, p3, s3, straight, resumed
+    del compiled, tree, p3, s3, straight, eager, resumed, runs
     print(f"[train] resume: {cfg.name} at {cfg.n_layers} of {full_layers} layers (depth cut), "
-          f"{api.count_params(cfg) / 1e9:.3f} B parameters, checkpoint {size / 1e9:.2f} GB "
-          f"written in {t_save:.1f} s, read in {t_load:.1f} s; after 4 steps straight vs "
-          f"2 + save/load + 2 (deterministic algorithms on): {n_leaves - len(differ)} "
-          f"of {n_leaves} leaves equal bit for bit")
-    check(step == 2 and not differ,
-          f"resume on the card is not bit for bit: {differ[:8]}")
+          f"{api.count_params(cfg) / 1e9:.3f} B parameters, deterministic algorithms on; "
+          f"compiled step: {info[0]} graph, warm-up s={info[1]}, capture s={info[2]}, "
+          f"pool GiB={info[3]}; 4 graphed steps against 4 eager: losses {lg} vs {le}, "
+          f"{n_leaves - len(vs_eager)} of {n_leaves} leaves equal bit for bit")
+    print(f"[train] resume: checkpoint {size / 1e9:.2f} GB written in {t_save:.1f} s, read in "
+          f"{t_load:.1f} s; after 4 graphed steps straight vs 2 + save/load + 2 (the fresh and "
+          f"the loaded trees copied into the compiled step's statics): "
+          f"{n_leaves - len(vs_resumed)} of {n_leaves} leaves equal bit for bit")
+    check(lg == le and not vs_eager, f"graphed steps are not bit-identical to eager ones: "
+                                     f"losses {lg} vs {le}, leaves {vs_eager[:8]}")
+    check(step_no == 2 and not vs_resumed,
+          f"resume on the card is not bit for bit: {vs_resumed[:8]}")
+    check(info[0] == 1, f"the resume's compiled step holds {info[0]} graphs, not 1")
 
 
-def train_main(torch, arch, batch, seq) -> None:
+def train_main(torch, arch, batch, seq, cut, ckpt_dir) -> None:
     """(e) The CLI, `repro_torch.launch.train.main`, on the card (its
-    default device) at full width and depth: 4 steps that save a
-    checkpoint at step 4, then 2 more that must resume from it.  Both
-    calls must return 0 (the last loss below the first) with finite
-    losses; the checkpoint (params and AdamW state, ~20 GB) is removed
-    after."""
+    default device) at full width and depth: 4 steps through its compiled
+    step (step 1 captures the graph), no checkpoint; must return 0 (the
+    last loss below the first) with finite losses.  Then the trainer's
+    resume: `launch.train.train` of `cut` (the config (c) ran) over
+    `ckpt_dir`, which holds (c)'s step-2 checkpoint: it must resume from
+    step 2 (the loaded trees become its compiled step's statics) and run
+    2 steps with finite losses."""
     import io
     from repro_torch.launch import train as train_mod
-    ckpt_dir = ROOT / "build" / "train_main_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    ckpt_dir.parent.mkdir(parents=True, exist_ok=True)
-    free = shutil.disk_usage(ckpt_dir.parent).free
-    args = ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
-            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "4"]
-    print(f"[train] main: {ckpt_dir.parent} has {free / 1e9:.1f} GB free")
-    outs = []
-    try:
-        for steps in (4, 2):
-            gc.collect()
-            torch.cuda.empty_cache()
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = train_mod.main(args + ["--steps", str(steps)])
-            out = buf.getvalue()
-            for line in out.splitlines():
-                print(f"[train] main --steps {steps}: {line}")
-            print(f"[train] main --steps {steps}: rc {rc}, {time.perf_counter() - t0:.1f} s")
-            first, last = re.search(r"^loss (\S+) -> (\S+) improved", out, re.M).groups()
-            check(rc == 0 and math.isfinite(float(first)) and math.isfinite(float(last)),
-                  f"launch.train.main --steps {steps}: rc {rc}, loss {first} -> {last}")
-            outs.append(out)
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-    check("resumed from" not in outs[0] and "resumed from step 4" in outs[1],
-          "launch.train.main did not resume from its step-4 checkpoint")
+    gc.collect()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_mod.main(["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+                             "--steps", "4"])
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[train] main --arch {arch}: {line}")
+    print(f"[train] main --arch {arch}: rc {rc}, {time.perf_counter() - t0:.1f} s")
+    first, last = re.search(r"^loss (\S+) -> (\S+) improved", out, re.M).groups()
+    check(rc == 0 and math.isfinite(float(first)) and math.isfinite(float(last)),
+          f"launch.train.main --arch {arch}: rc {rc}, loss {first} -> {last}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = train_mod.train(cut, steps=2, batch=batch, seq=seq, lr=TRAIN_LR,
+                                 ckpt_dir=str(ckpt_dir), ckpt_every=1000)
+    out = buf.getvalue()
+    label = f"[train] train ({cut.n_layers} layers, resumed)"
+    for line in out.splitlines():
+        print(f"{label}: {line}")
+    print(f"{label}: {time.perf_counter() - t0:.1f} s, losses {losses}")
+    check("resumed from step 2" in out and all(math.isfinite(x) for x in losses),
+          f"launch.train.train did not resume from (c)'s step-2 checkpoint: losses {losses}")
+
+
+class GradLog:
+    """Wraps an optimizer's update to keep the gradients of each step: an
+    eager run's as it runs; a graph's as the copies its capture made,
+    which each replay rewrites (`take` reads them after the step)."""
+
+    def __init__(self, torch, opt):
+        self.torch, self.update = torch, opt.update
+        self.live, self.captured = [], []
+        object.__setattr__(opt, "update", self)
+
+    def __call__(self, grads, state, params, lr):
+        from repro_torch.checkpoint import flatten_tree
+        g = {k: v.detach().clone() for k, v in flatten_tree(grads)}
+        capturing = self.torch.cuda.is_current_stream_capturing()
+        (self.captured if capturing else self.live).append(g)
+        return self.update(grads, state, params, lr)
+
+    def take(self) -> dict:
+        """The last step's gradients, on the CPU."""
+        g = self.live.pop() if self.live else self.captured[-1]
+        return {k: v.cpu() for k, v in g.items()}
 
 
 def train_reduced(torch, scan_mods) -> dict:
-    """(d) one step's loss and gradients of each reduced family on the card
-    against the CPU from the same weights (losses within 1e-3, gradients
-    within 1e-2 of the largest), then the optimizer's update on the card;
-    mamba2's and recurrentgemma's gradients on the card go through B3's
-    and B4's backward kernels, once a layer.  Returns kernel -> (forward,
-    backward) launches."""
+    """(d) Two steps of each reduced family on the card through the
+    compiled step (a warm-up step, then a replay of its CUDA graph)
+    against the eager step on the CPU from the same weights and batches:
+    each step's loss within 1e-3 and gradients within 1e-2 of the largest,
+    the updated params finite; mamba2's and recurrentgemma's gradients on
+    the card go through B3's and B4's backward kernels, once a layer each
+    step.  Returns kernel -> (forward, backward) launches."""
     from repro_torch.checkpoint import flatten_tree
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import build_train_step, value_and_grad
+    from repro_torch.launch.steps import build_train_step, compile_train_step
     from repro_torch.models import get_api
     launched = collections.Counter()
     for arch in TRAIN_REDUCED:
         cfg = get_config(arch)
         api = get_api(cfg)
         params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        batch = {**train_batches(torch, cfg, 1, 2, 32, seed=2, device="cpu")[0],
-                 **frontend_batch(torch, cfg, 2, seed=2, device="cpu")}
-        on_card = _map(params, lambda t: t.cuda())
-        card_batch = {k: v.cuda() for k, v in batch.items()}
-        _, opt = build_train_step(cfg, lr=TRAIN_LR)
-        loss_fn = lambda p, b: api.train_loss(cfg, p, b)[0]
-        cpu_loss, cpu_g = value_and_grad(loss_fn, params, batch)
+        card_params = _map(params, lambda t: t.cuda())  # before the CPU steps update params
+        batches = [{**train_batches(torch, cfg, 1, 2, 32, seed=2 + i, device="cpu")[0],
+                    **frontend_batch(torch, cfg, 2, seed=2 + i, device="cpu")} for i in range(2)]
         kernel = {"ssm": "B3", "hybrid": "B4"}.get(cfg.family)
+        want = ((1 + cfg.remat) * scan_layers(cfg), scan_layers(cfg)) if kernel else None
+        runs = {}
+        for on_card in (False, True):
+            step_fn, opt = build_train_step(cfg, lr=TRAIN_LR)
+            log = GradLog(torch, opt)
+            p = card_params if on_card else params
+            s = opt.init(p)
+            step = compile_train_step(step_fn, device="cuda") if on_card else step_fn
+            losses, grads, counts = [], [], []
+            for b in batches:
+                if kernel:
+                    mod = scan_mods[kernel]
+                    before = (mod.launches, mod.bwd_launches)
+                loss, p, s = step(p, s, {k: v.cuda() if on_card else v for k, v in b.items()})
+                losses.append(float(loss))
+                grads.append(log.take())
+                if kernel:
+                    counts.append((mod.launches - before[0], mod.bwd_launches - before[1]))
+            finite = all(bool(torch.isfinite(v).all()) for _, v in flatten_tree(p))
+            replayed = on_card and all(st.graph is not None for st in step.steps.values())
+            runs[on_card] = (losses, grads, counts, finite, replayed)
+            del step, p, s, log
+        del card_params
+        (cpu_losses, cpu_grads, _, _, _), (losses, grads, counts, finite, replayed) = (
+            runs[False], runs[True])
+        worst = max(float((v - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+                    for g, ref in zip(grads, cpu_grads) for k, v in g.items())
         if kernel:
-            mod = scan_mods[kernel]
-            before = (mod.launches, mod.bwd_launches)
-        loss, g = value_and_grad(loss_fn, on_card, card_batch)
-        if kernel:
-            got = (mod.launches - before[0], mod.bwd_launches - before[1])
-            want = ((1 + cfg.remat) * scan_layers(cfg), scan_layers(cfg))
-            print(f"[train] reduced {arch}: {kernel} launches (forward, backward) {got}, the "
-                  f"layers need {want}")
-            check(got == want, f"{arch}: {kernel} launched {got} times, want {want}")
-            launched[kernel + " forward"] += got[0]
-            launched[kernel + " backward"] += got[1]
-        ref = dict(flatten_tree(cpu_g))
-        worst = max(float((v.cpu() - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
-                    for k, v in flatten_tree(g))
-        opt.update(g, opt.init(on_card), on_card, TRAIN_LR)
-        finite = all(bool(torch.isfinite(v).all()) for _, v in flatten_tree(on_card))
-        print(f"[train] reduced {arch}: loss card {float(loss):.6f} cpu {float(cpu_loss):.6f}, "
-              f"largest gradient error / largest gradient {worst:.2e}, updated params finite "
-              f"{finite}")
-        check(abs(float(loss) - float(cpu_loss)) <= 1e-3, f"{arch}: card loss differs")
+            print(f"[train] reduced {arch}: {kernel} launches (forward, backward) per step "
+                  f"{counts}, the layers need {want}")
+            check(counts == [want] * 2, f"{arch}: {kernel} launched {counts}, want {want}")
+            launched[kernel + " forward"] += sum(c[0] for c in counts)
+            launched[kernel + " backward"] += sum(c[1] for c in counts)
+        print(f"[train] reduced {arch}: losses card (graphed) {losses} cpu {cpu_losses}, "
+              f"largest gradient error / largest gradient {worst:.2e}, step 2 a replay "
+              f"{replayed}, updated params finite {finite}")
+        check(replayed, f"{arch}: the card's step 2 was not a graph replay")
+        check(all(abs(a - b) <= 1e-3 for a, b in zip(losses, cpu_losses)),
+              f"{arch}: card losses differ")
         check(worst <= 1e-2 and finite, f"{arch}: card gradients differ or go non-finite")
     return launched
 
 
 def run_train(torch, kernel_mods) -> dict:
     """Phase 11: (a) qwen3-1.7b and (b) granite-moe-3b-a800m trained at
-    full width and depth, (c) resume bit for bit, (d) the reduced families
-    against the CPU, (e) the training CLI with a checkpoint and a resume,
-    and on B3 (mamba2-130m), (f) mamba2-130m at full size and (g)
+    full width and depth, eager and through the compiled step, (c) graphed
+    steps bit-identical to eager ones and the resume bit for bit, (d) the
+    reduced families compiled on the card against the CPU, (e) the
+    training CLI at full size and the trainer's resume at a cut depth, and
+    on B3 (mamba2-130m), (f) mamba2-130m at full size and (g)
     recurrentgemma-9b at full width (TRAIN_DEPTH_CUTS) through B3 and B4
-    in both directions.  B1 and B2 launch 0 times over the phase; B3's and
-    B4's forward and backward launches must equal what the layers need.
-    Returns kernel -> (forward, backward) launches over the phase."""
+    in both directions, eager and graphed.  B1 and B2 launch 0 times over
+    the phase; B3's and B4's forward and backward launches must equal what
+    the layers need.  Returns kernel -> (forward, backward) launches over
+    the phase."""
     from repro_torch.configs import get_config
     from repro_torch.energy.meter import NvmlMeter
     meter = NvmlMeter("cuda")
@@ -3186,27 +3366,31 @@ def run_train(torch, kernel_mods) -> dict:
     scatter = {op: n for op, n in watch.ops.items()
                if "scatter" in op or "index_add" in op or "index_put" in op}
     pairs = batch * seq * cfg.top_k * watch.n_moe
-    drops = [int(d) for d in watch.drops]
-    finite = [bool(f) for f in watch.finite]
-    print(f"[train] {arch}: (token, expert) pairs dropped past capacity per step, over its "
-          f"{watch.n_moe} MoE layers: {drops} of {pairs} "
-          f"({[round(d / pairs, 4) for d in drops]}); every gradient finite {finite}")
-    print(f"[train] {arch}: ops in the dispatch/combine backward of the profiled steps "
+    drops, finite = watch.drops, watch.finite
+    print(f"[train] {arch}: (token, expert) pairs dropped past capacity per step ({EAGER_STEPS} "
+          f"eager, then {steps} graphed), over its {watch.n_moe} MoE layers: {drops} of "
+          f"{pairs} ({[round(d / pairs, 4) for d in drops]}); every gradient finite {finite}")
+    print(f"[train] {arch}: ops in the dispatch/combine backward of the profiled eager step "
           f"{dict(watch.ops)}")
-    check(all(finite) and len(finite) == steps, f"{arch}: a gradient is not finite")
+    check(all(finite) and len(finite) == EAGER_STEPS + steps, f"{arch}: a gradient is not finite")
     check(watch.ops and not scatter, f"{arch}: the dispatch/combine backward ran {scatter}")
     print(f"[train] (b) {arch} s={time.perf_counter() - t0}")
-    t0 = time.perf_counter()
     arch, batch, seq, _ = TRAIN_DENSE
     cfg = get_config(arch)
-    train_resume(torch, cfg.replace(n_layers=TRAIN_RESUME_LAYERS), cfg.n_layers, batch, seq)
-    print(f"[train] (c) resume s={time.perf_counter() - t0}")
-    t0 = time.perf_counter()
-    want.update(train_reduced(torch, scan_mods))
-    print(f"[train] (d) reduced families s={time.perf_counter() - t0}")
-    t0 = time.perf_counter()
-    arch, batch, seq, _ = TRAIN_DENSE
-    train_main(torch, arch, batch, seq)
+    cut = cfg.replace(n_layers=TRAIN_RESUME_LAYERS)
+    ckpt_dir = ROOT / "build" / "train_ckpt"       # (c) saves, (e)'s trainer resumes
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        train_resume(torch, cut, cfg.n_layers, batch, seq, ckpt_dir)
+        print(f"[train] (c) graphed vs eager, resume s={time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        want.update(train_reduced(torch, scan_mods))
+        print(f"[train] (d) reduced families s={time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        train_main(torch, arch, batch, seq, cut, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     arch, batch, seq, steps = TRAIN_SSM_CLI
     fwd, bwd = train_cli(torch, arch, batch, seq, steps, scan_mods["B3"], "B3")
     want.update({"B3 forward": fwd, "B3 backward": bwd})
@@ -3217,8 +3401,9 @@ def run_train(torch, kernel_mods) -> dict:
         cfg = get_config(arch)
         full = cfg.n_layers
         cfg = cfg.replace(n_layers=TRAIN_DEPTH_CUTS.get(arch, full))
+        # recurrentgemma's eager steps already idle ~0.03 of their wall
         fwd, bwd = train_scan_cell(torch, cfg, kernel, scan_mods[kernel], batch, seq, steps,
-                                   meter, full)
+                                   meter, full, idle_check=kernel == "B3")
         want.update({f"{kernel} forward": fwd, f"{kernel} backward": bwd})
         print(f"[train] ({tag}) {arch} s={time.perf_counter() - t0}")
     launches = {name: mod.launches for name, mod in kernel_mods.items()}

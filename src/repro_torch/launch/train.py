@@ -8,7 +8,12 @@
 Port of `repro.launch.train`: `build_train_step` on synthetic LM batches
 (`data.workloads.lm_train_batches`), reporting the loss curve and step
 time, with checkpoints every `ckpt_every` steps and resume from the newest
-`step_*` directory of `ckpt_dir`.  Parameters are drawn on the device from
+`step_*` directory of `ckpt_dir`.  Where the reference jits the step with
+params and optimizer state donated, the step here is
+`launch.steps.compile_train_step`'s: on CUDA a graph captured at step 1
+(whose time includes the capture, as the reference's includes XLA's
+compile) and replayed at every later step, over the loaded checkpoint's
+trees when it resumes.  Parameters are drawn on the device from
 a torch.Generator seeded by `seed`.  Runs on CUDA unless `device="cpu"`
 is passed.  Token-only families, as the reference's: an encdec or vlm
 batch also needs frames or patches.
@@ -25,7 +30,7 @@ from repro_torch import checkpoint as ckptlib
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data.workloads import lm_train_batches
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.steps import build_train_step, compile_train_step
 from repro_torch.models import get_api
 
 
@@ -49,13 +54,14 @@ def train(arch, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
                                                      device=dev)
             params, opt_state = tree["params"], tree["opt_state"]
             print(f"resumed from step {start}")
+    jit_step = compile_train_step(step_fn, device=dev)
 
     losses: list[float] = []
     t0 = time.time()
     for i, b in enumerate(lm_train_batches(steps, batch, seq, cfg.vocab_size,
                                            seed=seed + start)):
         b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-        loss, params, opt_state = step_fn(params, opt_state, b)
+        loss, params, opt_state = jit_step(params, opt_state, b)
         losses.append(float(loss))
         step_no = start + i + 1
         if i % log_every == 0 or i == steps - 1:

@@ -55,7 +55,9 @@ def _step0(params: dict) -> torch.Tensor:
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """x as an f32 scalar on like's device, filled there: no host-to-device
+    copy, which a CUDA graph capture of the update would refuse."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 # Where the reference computes a*b + c, XLA contracts it to one fused

@@ -17,9 +17,10 @@ raises when that device is missing; the params must already be there.
 Compiled steps.  The reference jits `prefill` (static `cache_len`,
 `long_context`) and the decode step plus sampler (cache donated), so each
 call runs one program compiled for its shapes.  Here each such program is
-a `_Step`, keyed as XLA keys its programs: the input tensors' shapes and
-dtypes, plus `cache_len` and `long_context` for a prefill.  A step's body
-reads static buffers that each call first copies its inputs into.  On
+a `repro_torch.graphs.Step`, keyed as XLA keys its programs:
+the input tensors' shapes and dtypes, plus `cache_len` and `long_context`
+for a prefill.  A step's body reads static buffers that each call first
+copies its inputs into.  On
 CUDA the body is captured once into a `torch.cuda.CUDAGraph` (an eager
 warm-up on the engine's side stream first, which also loads the kernels'
 modules and sizes B1's workspace) and every call replays it; all graphs
@@ -61,9 +62,8 @@ import torch
 
 from repro_torch import resolve_device, shard
 from repro_torch.energy.meter import block_until_ready
-from repro_torch.kernels import decode_attention as _kda
-from repro_torch.kernels import rglru_scan as _krg
-from repro_torch.kernels import ssd_scan as _kss
+from repro_torch.graphs import (COUNTERS, Step, capture, copy_into, pool_bytes, signature,
+                                tensors, warm_up)
 from repro_torch.models import get_api
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.vlm import VISION_DIM
@@ -110,41 +110,11 @@ def _leaves(tree: dict):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-# The kernel modules on the engine's steps, whose `launches` a replay adds
-# the launches its graph recorded to.
-KERNELS = (_kda, _kss, _krg)
-
-
-def _tensors(x):
-    """The tensors of a step's inputs or outputs (dicts, caches, tuples), in
-    a fixed order, with their names."""
-    if isinstance(x, torch.Tensor):
-        yield "", x
-    elif isinstance(x, dict):
-        for k in sorted(x):
-            for name, t in _tensors(x[k]):
-                yield f"{k}.{name}" if name else k, t
-    elif dataclasses.is_dataclass(x):
-        for f in dataclasses.fields(x):
-            for name, t in _tensors(getattr(x, f.name)):
-                yield f"{f.name}.{name}" if name else f.name, t
-    elif isinstance(x, (tuple, list)):
-        for i, v in enumerate(x):
-            for name, t in _tensors(v):
-                yield f"{i}.{name}" if name else str(i), t
-
-
-def signature(x) -> tuple:
-    """What jax.jit keys a program on besides its static arguments: each
-    input tensor's name, shape and dtype."""
-    return tuple((name, tuple(t.shape), t.dtype) for name, t in _tensors(x))
-
-
-def _copy_into(static, value) -> None:
-    """Copy `value`'s tensors into the same-shaped static buffers."""
-    for (_, dst), (_, src) in zip(_tensors(static), _tensors(value), strict=True):
-        if dst is not src:
-            dst.copy_(src)
+# The launch counts a replay adds to (B1, B3 and B4; the backward counts
+# stay 0 in serving).  The graph parts live in `repro_torch.graphs`, shared
+# with the training step; the engine's tests import them by these names.
+KERNELS = COUNTERS
+_tensors, _Step = tensors, Step
 
 
 def _static_cache(caches: dict, cache):
@@ -158,37 +128,8 @@ def _static_cache(caches: dict, cache):
             raise RuntimeError("a static cache would be made inside a capture")
         static = caches[sig] = cache
     else:
-        _copy_into(static, cache)
+        copy_into(static, cache)
     return static
-
-
-class _Step:
-    """One program of the engine: `body` over the static buffers `inputs`.
-    Eager on the CPU; on CUDA, once `InferenceEngine._capture` has captured
-    the body, every call replays its graph and adds the launches the
-    capture recorded to each kernel module's count.  Outputs made inside
-    the graph (logits) hold only until the engine's next replay: its
-    graphs share one pool, so another graph's scratch may lie there.  The
-    engine reads each before its next call; the inputs, the KV-on cache
-    and the decode's token buffer are made outside the pool."""
-
-    def __init__(self, key: tuple, inputs: dict, body: Callable):
-        self.key, self.inputs, self.body = key, inputs, body
-        self.graph = None            # torch.cuda.CUDAGraph, once captured
-        self.outputs = None          # the graph's static outputs (eager: the last)
-        self.launches: tuple = ()    # (kernel module, launches a replay)
-        self.workspaces: list = []   # B1 workspaces the graph writes
-
-    def __call__(self, inputs: dict):
-        for k, v in inputs.items():
-            _copy_into(self.inputs[k], v)
-        if self.graph is None:
-            self.outputs = self.body()
-            return self.outputs
-        self.graph.replay()
-        for mod, n in self.launches:
-            mod.launches += n
-        return self.outputs
 
 
 class InferenceEngine:
@@ -224,7 +165,7 @@ class InferenceEngine:
         self.step_meter = _NullMeter() if getattr(meter, "per_call", False) else self.meter
         self.min_window_s = min_window_s
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.steps: dict[tuple, _Step] = {}     # key -> program, as jit's cache
+        self.steps: dict[tuple, Step] = {}     # key -> program, as jit's cache
         self._buffers: dict[tuple, torch.Tensor] = {}   # static inputs by (name, shape, dtype)
         self._caches: dict[tuple, Any] = {}     # static KV-on caches by signature
         self.capture_s = 0.0                    # warm-ups and captures, all graphs
@@ -273,7 +214,7 @@ class InferenceEngine:
     def _decode_key(self, cache, token: torch.Tensor) -> tuple:
         return ("decode", signature(cache), signature(token))
 
-    def _step(self, key: tuple, make: Callable[[], _Step]) -> _Step:
+    def _step(self, key: tuple, make: Callable[[], Step]) -> Step:
         """The step of `key`.  The CPU makes it at its first call; CUDA
         only replays what `_prepare` captured."""
         step = self.steps.get(key)
@@ -295,7 +236,7 @@ class InferenceEngine:
     # The step bodies close over the engine's parts, never the engine: an
     # engine in a reference cycle would keep its weights and graphs on the
     # card after its last use, until the garbage collector ran.
-    def _prefill_step(self, inputs: dict, cache_len: int) -> _Step:
+    def _prefill_step(self, inputs: dict, cache_len: int) -> Step:
         static = {k: self._buffer(k, v) for k, v in inputs.items()}
         api, cfg, params, kv_cache, caches = (self.api, self.cfg, self.params,
                                               self.kv_cache, self._caches)
@@ -305,9 +246,9 @@ class InferenceEngine:
             logits, cache = api.prefill(cfg, params, static, **kw)
             return logits, (_static_cache(caches, cache) if kv_cache else None)
 
-        return _Step(self._prefill_key(inputs, cache_len), {"batch": static}, body)
+        return Step(self._prefill_key(inputs, cache_len), {"batch": static}, body)
 
-    def _decode_step(self, cache, token: torch.Tensor) -> _Step:
+    def _decode_step(self, cache, token: torch.Tensor) -> Step:
         static = self._caches[signature(cache)]
         tok = self._buffer("token", token)
         api, cfg, params, sampler, generator = (self.api, self.cfg, self.params,
@@ -323,7 +264,7 @@ class InferenceEngine:
             tok.copy_(sampler(logits, generator))
             return tok, static, logits
 
-        return _Step(self._decode_key(cache, token), {"cache": static, "token": tok}, body)
+        return Step(self._decode_key(cache, token), {"cache": static, "token": tok}, body)
 
     # ------------------------------------------------------------------
     def _prepare(self, batch: dict, max_new: int) -> bool:
@@ -368,48 +309,34 @@ class InferenceEngine:
                 out[k] = torch.empty(tuple(v.shape), dtype=dtype, device="meta")
         return out
 
-    def _capture(self, step: _Step) -> None:
-        """Capture `step` into a CUDA graph: an eager warm-up on the engine's
-        side stream, then `torch.cuda.graph` on the same stream into the
-        engine's pool.  Records the launches the capture made per kernel
-        module, which each replay adds to the modules' counts, and the B1
-        workspaces it used.  The counts stay those of the engine's calls:
-        the capture runs nothing on the device, and the warm-up's launches
-        are tallied in `capture_launches` instead."""
+    def _capture(self, step: Step) -> None:
+        """Capture `step` into a CUDA graph (`graphs.warm_up` on the engine's
+        side stream, then `graphs.capture` on the same stream into the
+        engine's pool).  Each replay adds the launches the capture recorded
+        to the modules' counts.  The counts stay those of the engine's
+        calls: the capture runs nothing on the device, and the warm-up's
+        launches are tallied in `capture_launches` instead."""
         t0 = time.perf_counter()
         before = [m.launches for m in KERNELS]
+        generators = ()
+        if step.key[0] == "decode" and self.sampler.temperature > 0:
+            if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+                raise RuntimeError("sampling at temperature > 0 draws from the engine's "
+                                   "generator, which this torch cannot register with a "
+                                   "CUDA graph")
+            generators = (self.generator,)
         with torch.cuda.device(self.device):
-            cur = torch.cuda.current_stream()
-            self._stream.wait_stream(cur)
-            with torch.cuda.stream(self._stream):
-                step.body()
-            cur.wait_stream(self._stream)
-            warm = [m.launches for m in KERNELS]
-            graph = torch.cuda.CUDAGraph()
-            if step.key[0] == "decode" and self.sampler.temperature > 0:
-                if not hasattr(graph, "register_generator_state"):
-                    raise RuntimeError("sampling at temperature > 0 draws from the engine's "
-                                       "generator, which this torch cannot register with a "
-                                       "CUDA graph")
-                graph.register_generator_state(self.generator)
-            with _kda.record_workspaces() as used, \
-                    torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-                outputs = step.body()
-        step.launches = tuple((m, m.launches - w) for m, w in zip(KERNELS, warm)
-                              if m.launches != w)
-        for m, b, w in zip(KERNELS, before, warm):
-            m.launches = b
-            self.capture_launches[m.__name__] += w - b
-        step.graph, step.outputs, step.workspaces = graph, outputs, used
+            warm_up(step, self._stream)
+            for m, b in zip(KERNELS, before):
+                self.capture_launches[m.__name__] += m.launches - b
+                m.launches = b
+            capture(step, pool=self._pool, stream=self._stream, generators=generators)
         self.steps[step.key] = step
         self.capture_s += time.perf_counter() - t0
 
     def pool_bytes(self) -> int:
         """Device memory the engine's graph pool holds (reserved segments)."""
-        if not self.graphed:
-            return 0
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s.get("segment_pool_id", ())) == tuple(self._pool))
+        return pool_bytes(self._pool) if self.graphed else 0
 
     # ------------------------------------------------------------------
     @torch.no_grad()

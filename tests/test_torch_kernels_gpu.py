@@ -50,13 +50,24 @@ inside a graph from the registered generator; B1's workspace kept by a
 graph captured before a larger one replaced it; a capture that meets a
 host sync, or B1 given a Python int position while capturing, raises.
 
+The compiled training step (`launch.steps.compile_train_step`, one CUDA
+graph per jit key): every family's reduced model (qwen3 microbatched,
+granite-moe with capacity drops, deepseek-v3, mamba2, recurrentgemma,
+seamless, internvl2), remat on, 3 graphed steps bit-identical to 3 eager
+ones (losses, params, AdamW state; deterministic algorithms on) with B3's
+and B4's forward and backward launches per replay equal to what the
+layers need; DTensor params refused; the graph's pool released when the
+step is dropped.
+
 B2 (the analytic pass-cost surface) is held against its plain version on
 the card for the eight family branches, at rtol 1e-5 in float32 (the
 reference's gate for the TPU kernel) and 1e-12 in float64, and
 `simulate_batch` on the card within 1e-9 relative of the numpy closed form.
 """
 
+import os
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +75,10 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+# cuBLAS is deterministic under torch.use_deterministic_algorithms (the
+# compiled train step's bit-identity tests) only with a fixed workspace, set
+# before its first call in the process, as chip_smoke.py sets it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 # chip_smoke.py's phase 3 shapes, limits and gradient helpers: mamba2-130m's
 # training shape, S around the forward's 64-step chunks and the backward's
 # 32-step ones, state sizes 16 to 256, two groups; recurrentgemma-9b's
@@ -72,6 +87,7 @@ from chip_smoke import RGLRU_BWD_CASES, SCAN_BWD_TOL, SSD_BWD_CASES  # noqa: E40
 from chip_smoke import grad_err as _grad_err  # noqa: E402
 from chip_smoke import graph_drive  # noqa: E402
 from chip_smoke import scan_grads as _scan_grads  # noqa: E402
+from repro_torch import graphs
 from repro_torch.checkpoint import flatten_tree
 from repro_torch.configs import get_config
 from repro_torch.energy.simulator import AnalyticLLMSimulator
@@ -79,7 +95,7 @@ from repro_torch.kernels import cost_batch as kcb
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import rglru_scan as krg
 from repro_torch.kernels import ssd_scan as kss
-from repro_torch.launch.steps import build_train_step, value_and_grad
+from repro_torch.launch.steps import build_train_step, compile_train_step, value_and_grad
 from repro_torch.models import get_api
 from repro_torch.serving import InferenceEngine
 
@@ -1116,3 +1132,143 @@ def test_capture_that_meets_a_host_sync_raises(cuda):
         with torch.cuda.graph(g):
             kda.decode_attention(q, k, v, 5)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The compiled training step (launch.steps.compile_train_step)
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAPH_CASES = [       # (arch, config fields), remat on in each
+    ("qwen3-1.7b-reduced", {"microbatch": 2}),
+    ("granite-moe-3b-a800m-reduced", {"capacity_factor": 0.25}),
+    ("deepseek-v3-671b-reduced", {}),
+    ("mamba2-130m-reduced", {}),
+    ("recurrentgemma-9b-reduced", {}),
+    ("seamless-m4t-large-v2-reduced", {}),
+    ("internvl2-2b-reduced", {}),
+]
+
+
+def _train_setup(cuda, arch, fields, n=3, B=4, S=32):
+    """(cfg, train_step, optimizer, params on the card, n batches on the
+    card: tokens, labels and the encdec's frames or the vlm's patches),
+    the weights drawn on the CPU from seed 0."""
+    from repro_torch.serving.engine import frontend_inputs
+    cfg = get_config(arch).replace(remat=True, **fields)
+    step_fn, opt = build_train_step(cfg, lr=1e-3)
+    params = get_api(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                      torch.device("cpu"))
+    rng = np.random.default_rng(0)
+    batches = [{**{k: rng.integers(1, cfg.vocab_size, (B, S), dtype=np.int32)
+                   for k in ("tokens", "labels")},
+                **{k: rng.normal(size=v.shape).astype(np.float32)
+                   for k, v in frontend_inputs(cfg, B).items()}} for _ in range(n)]
+    return cfg, step_fn, opt, _moved(params, cuda), [
+        {k: torch.from_numpy(v).to(cuda) for k, v in b.items()} for b in batches]
+
+
+def _scan_launches_a_step(cfg, B) -> tuple:
+    """(B1, B3 forward, B3 backward, B4 forward, B4 backward) launches one
+    train step needs, in the order of `graphs.COUNTERS`: each scan layer's
+    forward once, again in remat's recompute, and its backward once, per
+    microbatch."""
+    from repro_torch.models import hybrid
+    mbs = B // (cfg.microbatch or B)
+    if cfg.family not in ("ssm", "hybrid"):
+        return (0, 0, 0, 0, 0)
+    layers = cfg.n_layers if cfg.family == "ssm" else hybrid.n_rec_layers(cfg)
+    fwd, bwd = (1 + cfg.remat) * layers * mbs, layers * mbs
+    return (0, fwd, bwd, 0, 0) if cfg.family == "ssm" else (0, 0, 0, fwd, bwd)
+
+
+@pytest.fixture
+def deterministic():
+    """torch.use_deterministic_algorithms(True) over the test: atomics in
+    the embedding's and the MoE dispatch's backward (index_put_,
+    index_add_) would otherwise sum in a different order each run, eager
+    or graphed."""
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("arch,fields", TRAIN_GRAPH_CASES, ids=[c[0] for c in TRAIN_GRAPH_CASES])
+def test_graphed_train_steps_equal_eager_ones(cuda, deterministic, arch, fields):
+    """3 steps of the compiled step as CUDA graphs (a warm-up step, then
+    two replays of one graph) against the same 3 steps run eagerly on the
+    card (`graphed=False`) from the same weights and batches, with
+    deterministic algorithms on: losses, params and AdamW state
+    bit-identical; every step, replays included, adds to the launch
+    counts what the layers need, and the capture recorded exactly that."""
+    runs = {}
+    for graphed in (True, False):
+        cfg, step_fn, opt, params, batches = _train_setup(cuda, arch, fields)
+        state = opt.init(params)
+        compiled = compile_train_step(step_fn, device=cuda, graphed=graphed)
+        losses, counts = [], []
+        for b in batches:
+            before = [c.launches for c in graphs.COUNTERS]
+            loss, params, state = compiled(params, state, b)
+            losses.append(loss)
+            counts.append(tuple(c.launches - n for c, n in zip(graphs.COUNTERS, before)))
+        torch.cuda.synchronize()
+        runs[graphed] = (losses, params, state, counts)
+        (step,) = compiled.steps.values()
+        if graphed:
+            assert step.graph is not None and compiled.capture_s > 0
+            assert compiled.pool_bytes() > 0
+            recorded = [0] * len(graphs.COUNTERS)
+            for c, n in step.launches:
+                recorded[graphs.COUNTERS.index(c)] = n
+            assert tuple(recorded) == _scan_launches_a_step(cfg, 4)
+        else:
+            assert step.graph is None
+    (lg, pg, sg, cg), (le, pe, se, ce) = runs[True], runs[False]
+    assert [float(x) for x in lg] == [float(x) for x in le]
+    for a, b in ((pg, pe), (sg, se)):
+        fa, fb = dict(flatten_tree(a)), dict(flatten_tree(b))
+        assert fa.keys() == fb.keys()
+        for k in fa:
+            assert torch.equal(fa[k], fb[k]), k
+    assert cg == ce == [_scan_launches_a_step(cfg, 4)] * 3
+
+
+def test_graphed_train_step_refuses_dtensor_params(cuda):
+    """DTensor params on CUDA raise NotImplementedError before any work:
+    sharded steps run eagerly through build_train_step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch.mesh import make_test_mesh, start_fake_group
+    cfg, step_fn, opt, params, batches = _train_setup(cuda, "qwen3-1.7b-reduced", {}, n=1)
+    state = opt.init(params)
+    started = not dist.is_initialized()
+    start_fake_group(1)
+    try:
+        mesh = make_test_mesh((1,), ("data",), "cuda")
+        params["embed"] = distribute_tensor(params["embed"], mesh, [Replicate()])
+        compiled = compile_train_step(step_fn, device=cuda)
+        with pytest.raises(NotImplementedError, match="DTensor"):
+            compiled(params, state, batches[0])
+        assert not compiled.steps
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def test_train_graph_pool_is_released_with_the_step(cuda):
+    """Dropping the compiled step frees its graph, and the caching
+    allocator then returns the graph's pool to the card."""
+    cfg, step_fn, opt, params, batches = _train_setup(cuda, "qwen3-1.7b-reduced", {})
+    state = opt.init(params)
+    compiled = compile_train_step(step_fn, device=cuda)
+    for b in batches:
+        loss, params, state = compiled(params, state, b)
+    pool = compiled._pool
+    assert graphs.pool_bytes(pool) > 0
+    ref = weakref.ref(compiled)
+    del compiled
+    assert ref() is None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert graphs.pool_bytes(pool) == 0
+    assert np.isfinite(float(loss))

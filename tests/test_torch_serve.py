@@ -213,7 +213,7 @@ class TestIsolation:
                                      "repro_torch.launch.dryrun", "repro_torch.analysis",
                                      "repro_torch.analysis.trace",
                                      "repro_torch.analysis.roofline",
-                                     "repro_torch.analysis.report"])
+                                     "repro_torch.analysis.report", "repro_torch.graphs"])
     def test_encdec_vlm_modules_alone_load_no_jax_or_repro(self, mod):
         """The encdec and vlm ports, the input shapes, the training path's
         modules and the kernels' oracles and public names, each imported
