@@ -22,8 +22,11 @@ Phases, each of which must pass:
               and float8_e4m3fn caches, keys past pos overwritten
               (the output bit-identical); B2 for every family branch and
               both decode modes at m = 1,000,037 (f32 rtol 1e-5, f64 rtol
-              1e-12); B3 at mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16 within 2e-2 of
-              the output's largest magnitude); B4 at recurrentgemma-9b's
+              1e-12), and in each operand mode (uniform batch or new tokens,
+              context aliasing new tokens, a stride-0 batch, misaligned
+              bases) at m = 1, 3, 5 and 1,000,037, one launch a call; B3
+              at mamba2-130m's (f32 atol 2e-4 / rtol 1e-3, bf16 within 2e-2
+              of the output's largest magnitude); B4 at recurrentgemma-9b's
               (1e-4); B3 and B4 also at the edges of their designs (chunk
               and tile boundaries, state sizes 16..256, W % 4 != 0); the
               backward kernels of B3 and B4, through their autograd
@@ -42,7 +45,9 @@ Phases, each of which must pass:
               floor and the yardstick back to back with the L2 warm; the
               B3 and B4 backward kernels at the training shapes beside
               their bounds and autograd's backward through the plain
-              versions; `simulate_batch` queries/s;
+              versions; B2 also at simulate_batch's own operands, with the
+              profiler's kernel duration and one kernel a call checked;
+              `simulate_batch` queries/s and B2's share of its busy time;
   5. analytic the paper's §6.3 case study through the port's host modules
               (analytic campaign, Eq. 6/7 fits, ζ-sweep, baselines), then
               `cost_matrices` on the card over the llama2-7b/13b/70b fleet
@@ -242,9 +247,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
-# CUDA-core f32, bf16 tensor; f64 outside the tensor cores (H100 SXM data sheet)
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float64": 34e12}
+if (ROOT / "src" / "repro_torch").is_dir():     # else main() stops: no port beside it
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.energy.hardware import H100_SXM
+    HBM_BYTES_PER_S = H100_SXM.hbm_bw
+    # CUDA-core f32, bf16 tensor; f64 outside the tensor cores (H100 SXM data sheet)
+    PEAK_OPS = {"float32": 67e12, "bfloat16": H100_SXM.peak_flops, "float64": 34e12}
 SERVE_ARCHS = ["llama2-7b", "llama2-13b"]
 SERVE_CHAR_MAX_TOKENS = 64      # the llama2 path's grid top: the reference's default
 SCAN_ARCHS = ["mamba2-130m", "recurrentgemma-9b"]
@@ -1206,22 +1214,28 @@ def kernel_split(torch, fn, pattern, steps=10) -> dict | None:
     return dict(split)
 
 
-def _breakdown(label, wall_ms, events, why, steps, kernel_keys, kernel_label) -> None:
+def _breakdown(label, wall_ms, events, why, steps, kernel_keys, kernel_label) -> dict | None:
+    """Prints wall, device busy and idle share, the named kernels' share of
+    the busy time and the top kernels; returns those numbers (None if the
+    profiler saw no device time)."""
     if not events:
         print(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy share not measured ({why})")
-        return
+        return None
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}")
     mine = [e for e in events if any(k in e.key for k in kernel_keys)]
     k_ms = sum(e.self_device_time_total for e in mine) / 1e3 / steps
+    launches = sum(e.count for e in mine) // steps
     print(f"[profile]   {kernel_label}: {k_ms:.4f} ms per call, "
           f"{k_ms / busy_ms:.3f} of device busy time, over "
-          f"{sum(e.count for e in mine) // steps} launches a call of "
+          f"{launches} launches a call of "
           f"{sorted({e.key[:80] for e in mine})}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / steps:.4f} ms per call "
               f"x{e.count // steps} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1 - busy_ms / wall_ms,
+            "kernel_ms": k_ms, "kernel_share": k_ms / busy_ms, "launches": launches}
 
 
 def decode_breakdown(torch, api, cfg, params, cache, token, kernel_keys, kernel_label,
@@ -2186,32 +2200,109 @@ def cost_inputs(torch, m, dtype, seed):
     return nt, ctx, torch.randint(1, 65, (m,), generator=g, device="cuda").to(dtype)
 
 
+# B2's operand modes beside the per-query case, each at these sizes: one
+# query up to 5 (a tail alone, or a vector and a tail), and 1,000,037 (not
+# a multiple of a vector)
+B2_MODE_CASES = ("uniform batch", "uniform new tokens", "aliased", "stride-0 batch",
+                 "misaligned", "misaligned context")
+B2_MODE_SIZES = (1, 3, 5, 1_000_037)
+
+
+def b2_operands(torch, case, m, dtype, seed):
+    """(new_tokens, context, batch) of m queries on the card for one of B2's
+    operand modes: a 0-d batch; the KV-on decode probe's
+    0-d 1 as new tokens with a 0-d batch; the prefill's one tensor as new
+    tokens and context with a 0-d batch; a batch expanded with stride 0;
+    every array sliced one element past a 16-byte boundary (t[1:]); only
+    the context so sliced.  The kernel reads a sliced array element by
+    element."""
+    nt, ctx, bt = cost_inputs(torch, m + 1, dtype, seed)
+    batch = torch.full((), 32, dtype=dtype, device="cuda")
+    if case == "uniform batch":
+        return nt[:m], ctx[:m], batch
+    if case == "uniform new tokens":
+        return torch.ones((), dtype=dtype, device="cuda"), ctx[:m], batch
+    if case == "aliased":
+        return ctx[:m], ctx[:m], batch
+    if case == "stride-0 batch":
+        return nt[:m], ctx[:m], batch.expand(m)
+    if case == "misaligned":
+        return nt[1:], ctx[1:], bt[1:]
+    if case == "misaligned context":
+        return nt[:m], ctx[1:], bt[:m]
+    raise ValueError(case)
+
+
+def b2_input_bytes(torch, nt, ctx, bt) -> int:
+    """Bytes B2's inputs need, each read once: every distinct array's m
+    elements (a context that is the new tokens' tensor counts once) and one
+    element of each uniform value (one element, or a view repeating one
+    with stride 0)."""
+    shape = torch.broadcast_shapes(nt.shape, ctx.shape, bt.shape)
+    n = 0
+    for i, t in enumerate((nt, ctx, bt)):
+        if i == 1 and (ctx.data_ptr(), ctx.shape, ctx.stride()) == (
+                nt.data_ptr(), nt.shape, nt.stride()):
+            continue
+        e = t.expand(shape)
+        uniform = all(st == 0 for st, k in zip(e.stride(), e.shape) if k > 1)
+        n += (1 if uniform else shape.numel()) * t.element_size()
+    return n
+
+
 def check_cost_batch(torch, kcb) -> dict:
     """B2 against its plain version for every family branch and both decode
-    modes at m = 1,000,037: f32 within rtol 1e-5 (the reference's gate for
-    the TPU kernel), f64 within 1e-12.  Returns dtype -> worst max_abs_err."""
+    modes at m = 1,000,037 with per-query inputs, then in each operand mode
+    (B2_MODE_CASES) at B2_MODE_SIZES, one launch a call: f32 within rtol
+    1e-5 (the reference's gate for the TPU kernel), f64 within 1e-12.
+    Returns dtype -> worst max_abs_err."""
     from repro_torch.configs import get_config
     worst = collections.defaultdict(float)
     misses = []
+    modes = collections.defaultdict(lambda: [0.0, 0.0, 0, 0])   # err, rel, same, calls
+
+    def compare(cfg, ops, decode, rtol):
+        before = kcb.launches
+        ours = kcb.pass_surface(cfg, *ops, decode=decode)
+        one = kcb.launches == before + 1
+        plain = kcb.pass_surface_plain(cfg, *ops, decode=decode)
+        err = max((a - b).abs().max().item() for a, b in zip(ours, plain))
+        rel = max(((a - b).abs() / b.abs()).max().item() for a, b in zip(ours, plain))
+        same = all(torch.equal(a, b) for a, b in zip(ours, plain))
+        return err, rel, same, one and rel <= rtol
+
     for i, arch in enumerate(COST_ARCHS):
         cfg = get_config(arch)
         for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
             nt, ctx, bt = cost_inputs(torch, 1_000_037, dtype, seed=i)
             name = str(dtype).removeprefix("torch.")
             for decode in (False, True):
-                ours = kcb.pass_surface(cfg, nt, ctx, bt, decode=decode)
-                plain = kcb.pass_surface_plain(cfg, nt, ctx, bt, decode=decode)
-                err = max((a - b).abs().max().item() for a, b in zip(ours, plain))
-                rel = max(((a - b).abs() / b.abs()).max().item() for a, b in zip(ours, plain))
-                same = all(torch.equal(a, b) for a, b in zip(ours, plain))
+                err, rel, same, ok = compare(cfg, (nt, ctx, bt), decode, rtol)
                 worst[name] = max(worst[name], err)
                 label = f"{arch} {name} decode={decode}"
                 print(f"[check] B2 {label}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
-                      f"bit-identical={same} rtol={rtol:g} {'ok' if rel <= rtol else 'MISS'}")
-                if not rel <= rtol:
+                      f"bit-identical={same} rtol={rtol:g} {'ok' if ok else 'MISS'}")
+                if not ok:
                     misses.append(label)
+            for case in B2_MODE_CASES:
+                for m in B2_MODE_SIZES:
+                    ops = b2_operands(torch, case, m, dtype, seed=100 + i)
+                    for decode in (False, True):
+                        err, rel, same, ok = compare(cfg, ops, decode, rtol)
+                        worst[name] = max(worst[name], err)
+                        row = modes[(case, m, name)]
+                        row[0], row[1] = max(row[0], err), max(row[1], rel)
+                        row[2] += same
+                        row[3] += 1
+                        if not ok:
+                            misses.append(f"{arch} {name} {case} m={m} decode={decode}")
+    for (case, m, name), (err, rel, same, calls) in modes.items():
+        print(f"[check] B2 {case} m={m} {name}: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+              f"bit-identical in {same} of {calls} calls ({len(COST_ARCHS)} archs x 2 decode "
+              f"modes, one launch each)")
     torch.cuda.synchronize()
-    check(not misses, f"B2 disagrees with its plain version: {misses}")
+    check(not misses, f"B2 disagrees with its plain version or launched other than once: "
+                      f"{misses}")
     return dict(worst)
 
 
@@ -2225,32 +2316,94 @@ def cost_ops_per_query(cfg, decode) -> int:
     return ops + (3 + 2 * (cfg.family == "ssm") if decode else 0)
 
 
-def time_cost_batch(torch, kcb) -> dict:
-    """B2 at m = 1,000,000 (llama2-70b, decode probe), f32 and f64, beside
-    its plain version and the bound for 3 arrays read and 2 written.  No
-    single PyTorch call computes the surface: no library time."""
+def profiled_kernel_ms(torch, fn, flush, key, steps=10):
+    """(device ms a call of the kernels whose name holds `key`, their
+    launches a call, every other kernel's launches a call besides the
+    flush's) from torch.profiler over `steps` calls of fn, the L2 flushed
+    before each as time_ms flushes it; None and why if the profiler saw no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and e.self_device_time_total > 0 and not e.key.startswith("Memcpy")]
+    except (RuntimeError, AssertionError) as e:     # reporting only: no tracer
+        return None, str(e)
+    mine = [e for e in events if key in e.key]
+    if not mine:
+        return None, "the profiler saw no device time"
+    others = sum(e.count for e in events if key not in e.key) - steps    # less the flushes
+    return (sum(e.self_device_time_total for e in mine) / 1e3 / steps,
+            sum(e.count for e in mine) / steps, others / steps), ""
+
+
+def time_cost_batch(torch, kcb, one_kernel=True) -> dict:
+    """B2 at m = 1,000,000: per-query inputs (llama2-70b, decode probe), f32
+    and f64; and simulate_batch's own calls at llama2-7b in f64, the
+    prefill's (τin as new tokens and context, a 0-d batch) and the KV-on
+    decode probe's (a 0-d 1, L, a 0-d batch).  Each beside its plain
+    version, the profiler's kernel duration (L2 flushed, as time_ms) and
+    the bound for the bytes its inputs need (b2_input_bytes) and its two
+    outputs.  No single PyTorch call computes the surface: no library
+    time.  one_kernel: fail unless the profiler saw one B2 launch and no
+    other kernel a call."""
     from repro_torch.configs import get_config
-    cfg = get_config("llama2-70b")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     m = 1_000_000
-    out = {}
+    rows = []
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
-        nt, ctx, bt = cost_inputs(torch, m, dtype, seed=11)
-        t = {"ms": time_ms(torch, lambda: kcb.pass_surface(cfg, nt, ctx, bt, decode=True), flush),
-             "plain_ms": time_ms(torch, lambda: kcb.pass_surface_plain(cfg, nt, ctx, bt,
-                                                                        decode=True), flush),
+        rows.append((f"B2 {name}", "llama2-70b", True, cost_inputs(torch, m, dtype, seed=11),
+                     f"m={m} {name} llama2-70b decode=True, per-query inputs"))
+    tin = torch.as_tensor(synthetic_queries(m)[0], dtype=torch.float64, device="cuda")
+    batch = torch.full((), ANALYTIC_BATCH, dtype=torch.float64, device="cuda")
+    rows.append(("B2 simulate_batch prefill", "llama2-7b", False, (tin, tin, batch),
+                 f"m={m} float64 llama2-7b decode=False, simulate_batch's prefill call "
+                 f"(tin, tin, 0-d batch)"))
+    L = tin + 0.5
+    rows.append(("B2 simulate_batch decode probe", "llama2-7b", True,
+                 (L.new_ones(()), L, batch),
+                 f"m={m} float64 llama2-7b decode=True, simulate_batch's KV-on decode probe "
+                 f"(0-d 1, L, 0-d batch)"))
+    out = {}
+    for key, arch, decode, ops, shape in rows:
+        cfg = get_config(arch)
+        name = str(ops[0].dtype).removeprefix("torch.")
+        call = lambda: kcb.pass_surface(cfg, *ops, decode=decode)           # noqa: E731
+        t = {"ms": time_ms(torch, call, flush),
+             "plain_ms": time_ms(torch, lambda: kcb.pass_surface_plain(cfg, *ops, decode=decode),
+                                 flush),
              "library_ms": None}
-        size = 4 if dtype == torch.float32 else 8
-        t_bytes = 5 * m * size / HBM_BYTES_PER_S
-        t_ops = cost_ops_per_query(cfg, True) * m / PEAK_OPS[name]
+        size = ops[0].element_size()
+        bytes_ = b2_input_bytes(torch, *ops) + 2 * m * size
+        t_bytes = bytes_ / HBM_BYTES_PER_S
+        t_ops = cost_ops_per_query(cfg, decode) * m / PEAK_OPS[name]
         t["bound_ms"] = max(t_bytes, t_ops) * 1e3
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        t["shape"] = f"m={m} {name} llama2-70b decode=True"
-        print(f"[time] B2 {name} ({t['shape']}): kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-              f"{t['bound_ms'] / t['ms']:.1%} of bound")
-        out[f"B2 {name}"] = t
+        t["shape"] = shape
+        prof, why = profiled_kernel_ms(torch, call, flush, "cost_batch_kernel")
+        if prof:
+            t["profiled_ms"], per_call, others = prof
+            seen = (f"profiler: kernel {t['profiled_ms']:.4f} ms, {per_call:g} B2 launches "
+                    f"and {others:g} other kernels a call")
+        else:
+            t["profiled_ms"], per_call, others = None, None, None
+            seen = f"profiler: not measured ({why})"
+        print(f"[time] {key} ({shape}): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {bytes_} bytes), "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound; {seen}")
+        if prof and one_kernel:
+            check(per_call == 1 and others == 0,
+                  f"{key}: {per_call} B2 launches and {others} other kernels a call")
+        out[key] = t
     return out
 
 
@@ -2261,21 +2414,28 @@ def synthetic_queries(m):
     return rng.integers(1, 4096, m), rng.integers(1, 4096, m)
 
 
-def time_simulate_batch(torch, kcb) -> None:
+SIMULATE_STEPS = 10     # simulate_batch calls timed, then profiled
+
+
+def time_simulate_batch(torch, kcb) -> dict:
     """simulate_batch over 10^6 synthetic queries: wall time and queries/s
     (host clock, numpy in and out), the device's busy share of it and B2's
-    share of that (profiler)."""
+    share of that (profiler).  Returns label -> `_breakdown`'s numbers."""
     from repro_torch.configs import PAPER_ZOO
     from repro_torch.energy import AnalyticLLMSimulator
     tin, tout = synthetic_queries(SYNTHETIC_QUERIES)
+    out = {}
     for kv in (True, False):
         sim = AnalyticLLMSimulator(PAPER_ZOO["llama2-7b"], batch=ANALYTIC_BATCH, kv_cache=kv,
                                    noise_sigma=0.0)
-        wall_ms, events, why = _profile(torch, lambda: kcb.simulate_batch(sim, tin, tout), 3)
+        wall_ms, events, why = _profile(torch, lambda: kcb.simulate_batch(sim, tin, tout),
+                                        SIMULATE_STEPS)
         label = f"simulate_batch llama2-7b KV-{'on' if kv else 'off'} m={len(tin)}"
         print(f"[time] {label}: {wall_ms:.2f} ms per call, {len(tin) / wall_ms * 1e3:.4g} "
               f"queries/s (host clock, numpy in and out)")
-        _breakdown(label, wall_ms, events, why, 3, ("cost_batch_kernel",), "B2")
+        out[label] = _breakdown(label, wall_ms, events, why, SIMULATE_STEPS,
+                                ("cost_batch_kernel",), "B2")
+    return out
 
 
 def run_analytic(torch, kcb) -> int:
@@ -3798,7 +3958,6 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     # cuBLAS is deterministic under torch.use_deterministic_algorithms (phase
     # 11's resume check) only with a fixed workspace, set before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3924,9 +4083,10 @@ def run_phases(torch, kids, kind, count, smi) -> int:
         entry("decode_attention (B1), vlm path (internvl2-2b)", "decode_attention.cu", b1,
               ev_launches["internvl2-2b"],
               max(errs["internvl2 serve"], errs["internvl2 serve fp8"]), "internvl2 serve"),
-        entry("pass_costs (B2, analytic pass-cost surface)", "cost_batch.cu",
+        entry("pass_costs (B2, analytic pass-cost surface) at simulate_batch's operands "
+              "(prefill: one array as new tokens and context, a 0-d batch)", "cost_batch.cu",
               "src/repro/kernels/cost_batch.py:347", analytic_launches,
-              cost_errs["float64"], "B2 float64"),
+              cost_errs["float64"], "B2 simulate_batch prefill"),
         entry("ssd_scan (B3, Mamba-2 SSD chunk scan)", "ssd_scan.cu",
               "src/repro/kernels/ssd_scan.py:73", scan_launches["B3"],
               scan_errs["B3 bfloat16"], "B3 characterize"),

@@ -211,22 +211,54 @@ def _kernel():
                            f"here and {size} in csrc/cost_batch.cu")
     fn = lib.cost_batch_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_longlong, CostBatchParams, ctypes.c_void_p])
+                   + [ctypes.c_longlong, CostBatchParams] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# Operand modes of csrc/cost_batch.cu: m elements, one value for every
+# query, or (context only) the new_tokens tensor itself.
+ARRAY, UNIFORM, ALIAS = 0, 1, 2
+
+
+def operand_mode(t: torch.Tensor, shape: torch.Size) -> tuple[torch.Tensor, int]:
+    """(tensor, mode) of one operand of an output of `shape`: UNIFORM for a
+    single element (a 0-d or one-element tensor, or a view that repeats one
+    element with stride 0), whose pointer the kernel reads; else ARRAY, the
+    operand broadcast to `shape` and made contiguous (no copy when it
+    already is)."""
+    if t.numel() == 1:
+        return t, UNIFORM
+    e = t.expand(shape)
+    if all(st == 0 for st, n in zip(e.stride(), e.shape) if n > 1):
+        return e, UNIFORM
+    return e.contiguous(), ARRAY
+
+
+def same_tensor(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a and b view the same elements: one pointer, shape and stride."""
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride())
 
 
 def _launch(cfg, nt, ctx, bt, *, include_weights, decode):
     global launches
     fn = _kernel()
-    nt, ctx, bt = (t.contiguous() for t in torch.broadcast_tensors(nt, ctx, bt))
-    flops, bytes_ = torch.empty_like(nt), torch.empty_like(nt)
-    if nt.numel() == 0:
+    shape = torch.broadcast_shapes(nt.shape, ctx.shape, bt.shape)
+    alias = same_tensor(ctx, nt)
+    nt, nt_mode = operand_mode(nt, shape)
+    ctx, ctx_mode = (nt, ALIAS) if alias and nt_mode == ARRAY else operand_mode(ctx, shape)
+    bt, bt_mode = operand_mode(bt, shape)
+    flops = torch.empty(shape, dtype=nt.dtype, device=nt.device)
+    bytes_ = torch.empty(shape, dtype=nt.dtype, device=nt.device)
+    m = shape.numel()
+    if m == 0:
         return flops, bytes_
     err = fn(_DTYPE_CODES[nt.dtype], nt.data_ptr(), ctx.data_ptr(), bt.data_ptr(),
-             flops.data_ptr(), bytes_.data_ptr(), nt.numel(),
+             flops.data_ptr(), bytes_.data_ptr(), m,
              surface_params(cfg, include_weights, decode, nt.dtype),
-             torch.cuda.current_stream(nt.device).cuda_stream)
+             nt_mode, ctx_mode, bt_mode, torch.cuda.current_stream(nt.device).cuda_stream)
     if err:
         raise RuntimeError(f"cost_batch kernel launch failed: cudaError_t {err}")
     launches += 1
@@ -312,10 +344,12 @@ def _decode_phase(cfg: ModelConfig, node, ctx0, n, batch, *, kv_cache: bool):
     lo = base
     hi = base + (n_eff - 1.0)
 
+    one = ctx0.new_ones(())
+
     def step_costs(L):
         if reprefix:   # paper mode: re-run the full L-token prefix per step
             return pass_surface(cfg, L, L, batch, decode=False)
-        return pass_surface(cfg, torch.ones_like(L), L, batch, decode=True)
+        return pass_surface(cfg, one, L, batch, decode=True)
 
     # static breakpoint structure (≤ 2: attention-window clamp, MoE
     # expert-saturation in re-prefix mode); values may depend on batch

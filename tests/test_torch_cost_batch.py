@@ -16,6 +16,7 @@ tests/test_torch_kernels_gpu.py runs the CUDA kernel on a card.
 
 import ctypes
 import re
+import types
 from pathlib import Path
 
 import numpy as np
@@ -119,23 +120,31 @@ class TestPassSurface:
 
 
 def emulate_kernel(p, nt, ctx, bt, dtype):
-    """csrc/cost_batch.cu's `cost_batch_kernel`, operation for operation, in
-    numpy `dtype` (which rounds every product and sum, as the kernel's _rn
-    intrinsics do), from the constants the kernel receives."""
+    """csrc/cost_batch.cu's `query`, operation for operation, in numpy
+    `dtype` (which rounds every product and sum, as the kernel's _rn
+    intrinsics do), from the constants the kernel receives.  The batch's
+    products with the constants come first (`BatchTerms`: once a thread for
+    a uniform batch, here a 0-d array), then each query's."""
     c = {name: dtype(getattr(p, name)) for name, ty in p._fields_ if ty is ctypes.c_double}
     nt, ctx, bt = (np.asarray(x, dtype) for x in (nt, ctx, bt))
+    # BatchTerms
+    ssm_b = c["ssm_layers"] * bt
+    attn_b = c["attn_layers"] * bt * dtype(4) * c["heads"] * c["head_dim"]
+    xattn_b = c["xattn_layers"] * bt * dtype(4) * c["heads"] * c["head_dim"]
+    router_b = c["router_layers"] * bt
+    state_b = bt * c["ssm_state_bytes"]
+    # query
     tokens = bt * nt
     cc = np.minimum(ctx, c["clamp"]) if p.has_clamp else ctx
     flops = c["k_dense"] * tokens
     if p.ssm:
-        flops = flops + c["ssm_layers"] * bt * nt * c["ssm_flops"]
+        flops = flops + ssm_b * nt * c["ssm_flops"]
     else:
-        flops = flops + c["attn_layers"] * bt * dtype(4) * c["heads"] * c["head_dim"] * nt * cc
+        flops = flops + attn_b * nt * cc
         if p.has_xattn:
-            flops = flops + (c["xattn_layers"] * bt * dtype(4) * c["heads"] * c["head_dim"]
-                             * nt * c["n_frames"])
+            flops = flops + xattn_b * nt * c["n_frames"]
     if p.moe:
-        flops = flops + c["router_layers"] * bt * nt * c["router_flops"]
+        flops = flops + router_b * nt * c["router_flops"]
     bytes_ = np.zeros_like(tokens)
     if p.include_weights:
         if p.moe:
@@ -148,9 +157,31 @@ def emulate_kernel(p, nt, ctx, bt, dtype):
     if p.decode:
         extra = bt * cc * c["kv_bytes"]
         if p.ssm:
-            extra = extra + bt * c["ssm_state_bytes"]
+            extra = extra + state_b
         bytes_ = bytes_ + extra
     return flops, bytes_
+
+
+def emulate_coverage(m, itemsize, threads=256, vecs=2):
+    """How often csrc/cost_batch.cu's launch writes each query (`launch`
+    and the kernel's indexing in numpy): 16-byte vectors (thread t of block
+    b: vectors b threads vecs + j threads + t), then single queries after
+    the last whole vector (the tail, by block 0's first threads).  Returns
+    (blocks, writes per query)."""
+    n = 16 // itemsize
+    nvec = m // n
+    per_block = threads * vecs
+    blocks = -(-nvec // per_block) if nvec > 0 else 1
+    writes = np.zeros(m, np.int64)
+    t = np.arange(threads)
+    tail = nvec * n + t
+    writes[tail[tail < m]] += 1
+    v = (np.arange(blocks)[:, None, None] * per_block + np.arange(vecs)[None, :, None] * threads
+         + t[None, None, :]).ravel()
+    v = v[v < nvec]
+    for k in range(n):
+        np.add.at(writes, v * n + k, 1)
+    return blocks, writes
 
 
 class TestKernelArithmetic:
@@ -180,6 +211,41 @@ class TestKernelArithmetic:
                                                 include_weights=iw, decode=decode)
                 np.testing.assert_array_equal(ef, pf.numpy())
                 np.testing.assert_array_equal(eb, pb.numpy())
+
+    @pytest.mark.parametrize("dtype", ["float32", "float64"])
+    @pytest.mark.parametrize("call", ["prefill", "decode probe", "uniform context"])
+    @pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+    def test_emulated_kernel_equals_plain_with_uniform_operands(self, family, call, dtype):
+        """simulate_batch's own operands: the prefill's (τin, τin, a 0-d
+        batch) and the KV-on decode probes' (a 0-d 1, L, a 0-d batch), and
+        a uniform context.  The batch's products taken once, as the kernel
+        takes them for a uniform batch, give the plain version's values bit
+        for bit."""
+        cfg = get_config(FAMILY_ARCHS[family])
+        nt, ctx = _queries(seed=6, m=300)
+        td, nd = getattr(torch, dtype), getattr(np, dtype)
+        ops = {"prefill": (ctx, ctx, 32.0), "decode probe": (1.0, ctx + 0.5, 32.0),
+               "uniform context": (nt, 4096.0, 3.0)}[call]
+        for iw in (True, False):
+            for decode in (True, False):
+                p = kcb.surface_params(cfg, iw, decode, td)
+                ef, eb = emulate_kernel(p, *ops, nd)
+                pf, pb = kcb.pass_surface_plain(cfg, *(torch.as_tensor(x, dtype=td)
+                                                       for x in ops),
+                                                include_weights=iw, decode=decode)
+                np.testing.assert_array_equal(np.broadcast_to(ef, pf.shape), pf.numpy())
+                np.testing.assert_array_equal(np.broadcast_to(eb, pb.shape), pb.numpy())
+
+    @pytest.mark.parametrize("vecs", [2, 4])
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    @pytest.mark.parametrize("m", [1, 3, 5, 37, 1_000_000, 1_000_037])
+    def test_every_query_is_written_once(self, m, itemsize, vecs):
+        """The kernel's vectors and tail write each query exactly once, for
+        both numbers of vectors a thread (two or three arrays: 2; one or
+        none: 4), in one wave of blocks with no grid-stride loop."""
+        blocks, writes = emulate_coverage(m, itemsize, vecs=vecs)
+        assert (writes == 1).all()
+        assert blocks == max(1, -(-(m // (16 // itemsize)) // (256 * vecs)))
 
     def test_large_weight_bytes_stay_double(self):
         """deepseek-v3-671b's weight bytes (~1.3e12 once every expert is hit)
@@ -338,3 +404,109 @@ class TestWrappers:
                      lambda: kcb.pass_costs_kernel(sim.cfg, [8.0], [8.0], 1.0)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
+
+
+class TestOperandModes:
+    """What the wrapper hands kernel B2: each operand an array or a uniform
+    value, context aliasing new_tokens, inputs at any offset, outputs on a
+    16-byte boundary.  The launch is a stand-in that records its
+    arguments, fed CPU tensors, since the wrapper's choices are made on the
+    host."""
+
+    def test_operand_mode(self):
+        shape = torch.Size([10])
+        for t in (torch.tensor(3.0), torch.tensor([3.0]), torch.tensor(3.0).expand(10),
+                  torch.tensor([[3.0]])):
+            u, mode = kcb.operand_mode(t, shape)
+            assert mode == kcb.UNIFORM and u.data_ptr() == t.data_ptr()
+        x = torch.arange(10.0)
+        a, mode = kcb.operand_mode(x, shape)
+        assert mode == kcb.ARRAY and a.data_ptr() == x.data_ptr()      # no copy
+        a, mode = kcb.operand_mode(torch.arange(20.0)[::2], shape)
+        assert mode == kcb.ARRAY and a.is_contiguous() and torch.equal(a, 2 * x)
+        a, mode = kcb.operand_mode(torch.arange(3.0)[:, None], torch.Size([3, 5]))
+        assert mode == kcb.ARRAY and a.shape == (3, 5) and a.is_contiguous()
+
+    @pytest.fixture
+    def recorded(self, monkeypatch):
+        calls = []
+
+        def launch(dtype, nt, ctx, bt, flops, bytes_, m, params, *rest):
+            calls.append(dict(ptrs=(nt, ctx, bt, flops, bytes_), m=m, modes=rest[:3]))
+            return 0
+
+        monkeypatch.setattr(kcb, "_kernel", lambda: launch)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device=None: types.SimpleNamespace(cuda_stream=0))
+        return calls
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_simulate_batch_operands_go_in_without_copies(self, recorded, dtype):
+        cfg = get_config("llama2-7b")
+        L = torch.arange(1.0, 1002.0, dtype=dtype)
+        B = torch.tensor(32.0, dtype=dtype)
+        cases = [((L, L, B), (kcb.ARRAY, kcb.ALIAS, kcb.UNIFORM)),          # prefill
+                 ((L.new_ones(()), L, B), (kcb.UNIFORM, kcb.ARRAY, kcb.UNIFORM)),  # probe
+                 ((L, 2 * L, L), (kcb.ARRAY,) * 3),
+                 ((B.expand(1001), L, B.expand(1001)), (kcb.UNIFORM, kcb.ARRAY, kcb.UNIFORM))]
+        for (nt, ctx, bt), modes in cases:
+            before = kcb.launches
+            f, b = kcb._launch(cfg, nt, ctx, bt, include_weights=True, decode=True)
+            call = recorded[-1]
+            assert kcb.launches == before + 1
+            assert call["modes"] == modes and call["m"] == 1001
+            assert call["ptrs"][:3] == (nt.data_ptr(), ctx.data_ptr(), bt.data_ptr())
+            assert f.shape == b.shape == (1001,) and f.dtype == b.dtype == dtype
+            assert f.data_ptr() % 16 == b.data_ptr() % 16 == 0
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_outputs_are_16_byte_aligned_whatever_the_inputs(self, recorded, dtype):
+        """Inputs off a 16-byte boundary (slices t[k:]) go in as they are,
+        read element by element by the kernel; the outputs are fresh
+        allocations on a 16-byte boundary, which the kernel requires."""
+        cfg = get_config("llama2-7b")
+        base = torch.arange(1.0, 40.0, dtype=dtype)
+        for k in range(4):
+            t = base[k:k + 30]
+            for ops in ((t, t, torch.tensor(2.0, dtype=dtype)),
+                        (torch.tensor(1.0, dtype=dtype), t, base[:30])):
+                f, b = kcb._launch(cfg, *ops, include_weights=False, decode=False)
+                assert recorded[-1]["ptrs"][:3] == tuple(x.data_ptr() for x in ops)
+                assert f.data_ptr() % 16 == b.data_ptr() % 16 == 0
+                assert f.shape == (30,) and f.is_contiguous()
+
+    def test_all_uniform_and_empty(self, recorded):
+        cfg = get_config("llama2-7b")
+        one = torch.tensor(1.0)
+        f, _ = kcb._launch(cfg, one, one, one, include_weights=True, decode=False)
+        assert f.shape == () and recorded[-1]["modes"] == (kcb.UNIFORM,) * 3
+        n = len(recorded)
+        f, _ = kcb._launch(cfg, torch.zeros(0), torch.zeros(0), one,
+                           include_weights=True, decode=False)
+        assert f.shape == (0,) and len(recorded) == n       # nothing to launch
+
+    @pytest.mark.parametrize("kv", [True, False])
+    def test_simulate_batch_passes_uniform_operands(self, jcb, monkeypatch, kv):
+        """simulate_batch passes its batch as a 0-d tensor, the prefill's
+        τin as both new tokens and context, and (KV on) each decode probe's
+        new tokens as a 0-d 1: on a card, one array read and no copy.  On
+        the CPU its values still equal the reference's jit simulate_batch."""
+        seen = []
+        plain = kcb.pass_surface
+
+        def recording(cfg, nt, ctx, bt, **kw):
+            shape = torch.broadcast_shapes(nt.shape, ctx.shape, bt.shape)
+            modes = [kcb.operand_mode(t, shape)[1] for t in (nt, ctx, bt)]
+            if kcb.same_tensor(ctx, nt):
+                modes[1] = kcb.ALIAS
+            seen.append((tuple(modes), kw["decode"]))
+            return plain(cfg, nt, ctx, bt, **kw)
+
+        monkeypatch.setattr(kcb, "pass_surface", recording)
+        sim, jsim = _sim("dense", kv, batch=32)
+        e, r = kcb.simulate_batch(sim, TIN, TOUT, device="cpu")
+        probe = ((kcb.UNIFORM, kcb.ARRAY, kcb.UNIFORM), True) if kv else \
+            ((kcb.ARRAY, kcb.ALIAS, kcb.UNIFORM), False)
+        assert seen == [((kcb.ARRAY, kcb.ALIAS, kcb.UNIFORM), False)] + [probe] * 3
+        je, jr = jcb.simulate_batch(jsim, TIN, TOUT)
+        assert _rel(e, je) <= 1e-9 and _rel(r, jr) <= 1e-9

@@ -61,10 +61,15 @@ step is dropped.
 
 B2 (the analytic pass-cost surface) is held against its plain version on
 the card for the eight family branches, at rtol 1e-5 in float32 (the
-reference's gate for the TPU kernel) and 1e-12 in float64, and
-`simulate_batch` on the card within 1e-9 relative of the numpy closed form.
+reference's gate for the TPU kernel) and 1e-12 in float64, and bit for bit
+in each operand mode (uniform, aliased, misaligned; m = 1, 3, 5,
+1,000,037); `simulate_batch` on the card within 1e-9 relative of the numpy
+closed form, each of its pass-cost calls one B2 launch with no copy or fill
+kernel beside it (profiler).
 """
 
+import collections
+import itertools
 import os
 import sys
 import weakref
@@ -84,6 +89,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 # 32-step ones, state sizes 16 to 256, two groups; recurrentgemma-9b's
 # training shape, many tiles, W % 4 != 0
 from chip_smoke import RGLRU_BWD_CASES, SCAN_BWD_TOL, SSD_BWD_CASES  # noqa: E402
+from chip_smoke import B2_MODE_CASES, B2_MODE_SIZES, b2_operands  # noqa: E402
 from chip_smoke import grad_err as _grad_err  # noqa: E402
 from chip_smoke import graph_drive  # noqa: E402
 from chip_smoke import scan_grads as _scan_grads  # noqa: E402
@@ -668,6 +674,73 @@ def test_cost_batch_rejects_what_the_kernel_does_not_take(cuda):
                                    device="cpu")
     np.testing.assert_allclose(f, pf, rtol=1e-5)
     np.testing.assert_allclose(b, pb, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("float64", 1e-12)])
+@pytest.mark.parametrize("m", B2_MODE_SIZES)
+@pytest.mark.parametrize("case", B2_MODE_CASES)
+def test_cost_batch_operand_modes(cuda, case, m, dtype, rtol):
+    """B2 with a uniform batch or new tokens (0-d, or expanded with stride
+    0), context aliasing new tokens, and bases off a 16-byte boundary, at
+    m = 1, 3, 5 and 1,000,037 (chip_smoke's check): one launch a call, bit
+    for bit with the plain version (as every per-query case is), for every
+    family branch and both decode modes."""
+    td = getattr(torch, dtype)
+    for i, arch in enumerate(COST_ARCHS):
+        cfg = get_config(arch)
+        ops = b2_operands(torch, case, m, td, seed=200 + i)
+        for decode in (False, True):
+            before = kcb.launches
+            f, b = kcb.pass_surface(cfg, *ops, decode=decode)
+            assert kcb.launches == before + 1 and f.shape == b.shape == (m,)
+            pf, pb = kcb.pass_surface_plain(cfg, *ops, decode=decode)
+            torch.testing.assert_close(f, pf, rtol=rtol, atol=0)
+            torch.testing.assert_close(b, pb, rtol=rtol, atol=0)
+            assert torch.equal(f, pf) and torch.equal(b, pb), (arch, decode)
+
+
+def _kernel_counts(fn) -> collections.Counter:
+    """Kernels and device copies fn launches (torch.profiler, one call after
+    a warm-up): name -> count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter({e.key: e.count for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA})
+
+
+@pytest.mark.parametrize("kv", [True, False])
+def test_simulate_batch_launches_b2_alone(cuda, monkeypatch, kv):
+    """Each pass_surface call of simulate_batch (llama2-7b, batch 32, 10⁵
+    queries) is one B2 launch and nothing else: no copy of a broadcast
+    operand, no fill of a ones tensor.  The profile of simulate_batch with
+    its pass_surface calls answered from memory (the same outputs, no
+    launch) lacks exactly the B2 launches."""
+    sim = AnalyticLLMSimulator(get_config("llama2-7b"), batch=32, kv_cache=kv, noise_sigma=0.0)
+    tin, tout = np.random.default_rng(7).integers(1, 4096, (2, 100_000))
+    outs = []
+    real = kcb.pass_surface
+
+    def recording(*args, **kw):
+        outs.append(real(*args, **kw))
+        return outs[-1]
+
+    monkeypatch.setattr(kcb, "pass_surface", recording)
+    with_b2 = _kernel_counts(lambda: kcb.simulate_batch(sim, tin, tout))
+    calls = kcb.surface_calls(sim.cfg, kv)
+    assert len(outs) == 2 * calls
+    replies = itertools.cycle(outs[-calls:])
+    monkeypatch.setattr(kcb, "pass_surface", lambda *args, **kw: next(replies))
+    without = _kernel_counts(lambda: kcb.simulate_batch(sim, tin, tout))
+    added = with_b2 - without
+    assert not without - with_b2
+    # one instance of B2 per operand modes: the prefill's and the probes'
+    assert all("cost_batch_kernel" in name for name in added), added
+    assert sum(added.values()) == calls
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,9 @@ recurrentgemma configs and for AdamW, Adafactor and SGD:
 - they equal the reference's jitted, donated step over 3 steps within
   tests/test_torch_train.py's tolerances: losses within 1e-4 (SGD: rel
   1e-5), each step's gradients within 1e-4 x max(1, max|g|), SGD's
-  params within 1e-5 (AdamW and Adafactor params are not compared: a
-  sign flip of a near-zero gradient moves an element by about lr; the
-  scan families run SGD here, see REF_CASES);
+  params within 1e-5 (AdamW and Adafactor params are not compared:
+  their division by sqrt(v) + eps turns a small gradient difference into
+  a step of up to lr; the scan families run SGD here, see REF_CASES);
 - after calls with two batch shapes the number of programs equals the
   reference jit's `_cache_size()`;
 - the first call's trees are the statics (the same objects come back),
@@ -62,12 +62,14 @@ FAMILIES = [
 ]
 OPTIMIZERS = ["adamw", "adafactor", "sgd"]
 # The reference comparison: qwen3 with each optimizer, the dense and MoE
-# families with AdamW, the scan families with SGD.  AdamW moves an element
-# whose gradient is near zero by about lr whatever its size, so a sign
-# that the two packages' reduction orders flip there moves the params
-# apart: in mamba2 and recurrentgemma that puts the next steps' gradients
-# past 1e-4 (their first step's are within 1 % of it), while SGD keeps
-# every step's within 1 % of it.
+# families with AdamW, the scan families with SGD.  AdamW divides each
+# update by sqrt(v) + 1e-8, so where a gradient is small it turns the two
+# packages' gradient differences, far inside 1e-4, into steps of a
+# fraction of lr: in mamba2 and recurrentgemma that moves the params apart
+# and puts the next steps' gradients past 1e-4 (their first step's are
+# within 1 % of it), while SGD keeps every step's within 1 % of it.
+# tests/test_torch_train_adamw_anchor.py holds their AdamW steps to the
+# reference one at a time from its own params and state.
 REF_CASES = ([(FAMILIES[0], o) for o in OPTIMIZERS] + [(f, "adamw") for f in FAMILIES[1:3]]
              + [(f, "sgd") for f in FAMILIES[3:]])
 LR = 1e-3
