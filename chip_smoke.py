@@ -196,7 +196,26 @@ Phases, each of which must pass:
               recompute; 1 backward).  B1 and B2 launch 0 times in the
               phase; B3's and B4's forward and backward launches equal
               what the layers run need;
- 12. sharding and the dry run, on a one-rank NCCL group and a (1, 1)
+ 12. examples the port's five examples (`examples/torch_*.py`), each run in
+              this process as `python` runs it (`runpy`, `sys.argv`), its
+              output printed: quickstart, zeta_sweep and cluster_sim on
+              the host (`torch_quickstart.py` also as a child process,
+              `PYTHONPATH=src python examples/torch_quickstart.py`,
+              started before phase 11 and collected here: rc 0, the same
+              text); serve_endtoend on the card (the reduced
+              llama2 pair characterized, fitted on NVML joules, routed and
+              served; each model's R², trial power, the TOTAL line equal to
+              the served joules, which lie above their error bound (a
+              served batch of these widths lasts milliseconds, so it is
+              repeated inside one window of at least 0.4 s and reports the
+              mean), B1's launches equal to layers x max_new x repeats
+              over the served batches); train_small at
+              768 x 12 for its
+              200 steps through the compiled step (one graph; the loss
+              falls; step 1's seconds, step 2's device busy time under the
+              profiler, then over steps 3-200 in one NVML window the
+              seconds a step, idle share, graphed tokens/s and J a step);
+ 13. sharding and the dry run, on a one-rank NCCL group and a (1, 1)
               ("data", "model") mesh: (a) qwen3-1.7b trained as phase 11
               (a) trains it, 2 steps on FSDP DTensors under the train
               rules, against the unsharded step from the same weights
@@ -438,11 +457,15 @@ def energy_report(tag, serve_mod, out, whole, idle_w, limit_w, counter, calls) -
         n_windows += len(trials)
         windows_j += sum(wins)
     for arch, t in out["totals"].items():
+        # the served batches' windows come first: later KV-on calls of a
+        # phase are outside `whole`
+        wins = calls.windows[(arch, True)][:t["batches"]]
         print(f"[{tag}] {arch}: queries={t['queries']} tokens={t['tokens']} "
               f"measured_s={t['runtime_s']} NVML_J={t['energy_j']} "
-              f"host-model_J={WallClockMeter().power_w * t['runtime_s']}")
+              f"host-model_J={WallClockMeter().power_w * t['runtime_s']} (a batch's mean "
+              f"over its repeats {t['repeats']}; windows {min(wins)}-{max(wins)} J)")
         n_windows += t["batches"]
-        windows_j += t["energy_j"]
+        windows_j += sum(wins)
     bound = whole["window_j"] + n_windows * counter["step_j"]
     print(f"[{tag}] NVML J over the whole run={whole['window_j']}; its {n_windows} trial and "
           f"served-batch windows sum to {windows_j} J, {windows_j / whole['window_j']:.4f} "
@@ -489,6 +512,8 @@ def decode_shapes(torch, serve_mod):
         "internvl2 serve fp8": (4, 16, 8, 128, s_vlm, bf, f8),
         "reduced": (2, 4, 2, 32, s_serve, torch.float32, torch.float32),
         "reduced fp8": (2, 4, 2, 32, s_serve, torch.float32, f8),
+        # torch_serve_endtoend.py's decode steps: serve() pads every batch to 4
+        "reduced serve": (4, 4, 2, 32, s_serve, torch.float32, torch.float32),
     }
 
 
@@ -693,10 +718,11 @@ def time_decode(torch, kda, shapes) -> dict:
 
 
 def expected_decode_launches(serve_mod, out, get_config=None) -> int:
-    """Layers x max_new summed over the served batches, batched as `serve`
-    batches them; the KV-off characterization never decodes.  Layers are
-    those of the configs `serve` ran (`get_config`: the registry's, or the
-    MoE phase's depth cut)."""
+    """Layers x max_new x repeats summed over the served batches, batched as
+    `serve` batches them (each batch repeated inside its NVML window as
+    `out["totals"]` records); the KV-off characterization never decodes.
+    Layers are those of the configs `serve` ran (`get_config`: the
+    registry's, or the MoE phase's depth cut)."""
     from repro_torch.data import token_batches
     if get_config is None:
         from repro_torch.configs import get_config
@@ -706,8 +732,12 @@ def expected_decode_launches(serve_mod, out, get_config=None) -> int:
             continue
         cfg = get_config(arch)
         qs = [(r.tau_in, r.max_new_tokens) for r in reqs]
-        for b in token_batches(qs, 4, cfg.vocab_size):
-            n += cfg.n_layers * int(b["tau_out"].max())
+        batches = list(token_batches(qs, 4, cfg.vocab_size))
+        repeats = out["totals"][arch]["repeats"]
+        check(len(repeats) == len(batches), f"{arch}: {len(repeats)} served windows for "
+              f"{len(batches)} batches")
+        for b, r in zip(batches, repeats):
+            n += cfg.n_layers * int(b["tau_out"].max()) * r
     return n
 
 
@@ -731,7 +761,8 @@ def run_serve(torch, kda, serve_mod, limit_w, counter) -> tuple[int, list]:
     print(f"[serve] serve() wall s={wall} (characterized up to {SERVE_CHAR_MAX_TOKENS} tokens)")
     print(f"[serve] max_memory_allocated GiB={torch.cuda.max_memory_allocated() / 2**30}")
     expected = expected_decode_launches(serve_mod, out)
-    print(f"[serve] B1 launches={launches} expected={expected} (layers x max_new over batches)")
+    print(f"[serve] B1 launches={launches} expected={expected} (layers x max_new x repeats "
+          f"over batches)")
     n_routed = sum(len(rs) for rs in out["plan"].per_model.values())
     check(n_routed == SERVE_QUERIES, f"plan routed {n_routed} of {SERVE_QUERIES} queries")
     check(sum(t["queries"] for t in out["totals"].values()) == SERVE_QUERIES,
@@ -1879,8 +1910,8 @@ def run_moe_serve(torch, kda, serve_mod, limit_w, counter) -> int:
     """serve() of granite-moe-3b-a800m and mixtral-8x7b (DEPTH_CUTS), then
     one KV-on generate of each outside the router.  Every engine decode
     call must launch B1 once per layer and every prefill never; over the
-    run B1's launches must equal the served batches' layers x max_new plus
-    the generates'.  Returns B1's launches over the run."""
+    run B1's launches must equal the served batches' layers x max_new x
+    repeats plus the generates'.  Returns B1's launches over the run."""
     import numpy as np
     from repro_torch.energy.meter import NvmlMeter
     from repro_torch.serving import InferenceEngine
@@ -2039,8 +2070,9 @@ def characterize_with_frontends(serve_mod, arch) -> list:
 def serve_with_frontends(torch, serve_mod, archs, *, seed=0) -> dict:
     """`serve_mod.serve` for models whose prefill also takes frames or
     patches: characterize, fit, route SERVE_QUERIES Alpaca-like queries at
-    zeta 0.5, and serve each model's batches (batch 4, KV on) with seeded
-    random frames/patches.  Returns {"plan", "totals", "profiles", "trials"}."""
+    zeta 0.5, and serve each model's batches (batch 4, KV on, each repeated
+    inside its window as `serve` does) with seeded random frames/patches.
+    Returns {"plan", "totals", "profiles", "trials"}."""
     import numpy as np
     from repro_torch.data import alpaca_like_workload, token_batches
     from repro_torch.data.workloads import WorkloadSpec
@@ -2058,7 +2090,8 @@ def serve_with_frontends(torch, serve_mod, archs, *, seed=0) -> dict:
                                                 **serve_mod.SERVE_WORKLOAD))
     plan = router.route([Request(i, np.zeros(q[0], np.int32), q[1])
                          for i, q in enumerate(queries)])
-    engines = {a: serve_mod.build_engine(a, kv_cache=True, device="cuda") for a in archs}
+    engines = {a: serve_mod.build_engine(a, kv_cache=True, device="cuda",
+                                         min_window_s=serve_mod.TRIAL_WINDOW_S) for a in archs}
     totals = {}
     for n, (arch, rs) in enumerate(plan.per_model.items()):
         if not rs:
@@ -2066,6 +2099,7 @@ def serve_with_frontends(torch, serve_mod, archs, *, seed=0) -> dict:
         eng = engines[arch]
         e_j = t_s = 0.0
         n_tok = 0
+        repeats = []
         batches = list(token_batches([(r.tau_in, r.max_new_tokens) for r in rs], 4,
                                      eng.cfg.vocab_size))
         for i, b in enumerate(batches):
@@ -2076,8 +2110,9 @@ def serve_with_frontends(torch, serve_mod, archs, *, seed=0) -> dict:
             e_j += stats.energy_j
             t_s += stats.runtime_s
             n_tok += int(b["lengths"].sum()) + max_new * 4
+            repeats.append(stats.repeats)
         totals[arch] = {"queries": len(rs), "energy_j": e_j, "runtime_s": t_s,
-                        "tokens": n_tok, "batches": len(batches)}
+                        "tokens": n_tok, "batches": len(batches), "repeats": repeats}
     return {"plan": plan, "totals": totals, "profiles": profiles, "trials": trials}
 
 
@@ -3582,7 +3617,221 @@ def _map(tree, fn):
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: the sharding layer on the card, and the dry run against it
+# Phase 12: the port's five examples, as a user runs them
+# ---------------------------------------------------------------------------
+
+HOST_EXAMPLES = ("quickstart", "zeta_sweep", "cluster_sim")
+# torch_train_small.py at its docstring's real-hardware variant, for its
+# default 200 steps (batch and seq are set inside the example)
+EXAMPLE_TRAIN_ARGV = ["--d-model", "768", "--layers", "12"]
+EXAMPLE_TRAIN_STEPS = 200
+
+
+def run_example(name, argv=()) -> tuple[float, str]:
+    """examples/torch_<name>.py run in this process as `python` runs it
+    (`runpy` under `__main__`, `sys.argv` set), its stdout captured, then
+    printed line by line under `[examples] <name> |`.  A non-zero
+    `SystemExit` fails the phase; any other exception propagates.
+    Returns its wall seconds and its output."""
+    import io
+    import runpy
+    path = ROOT / "examples" / f"torch_{name}.py"
+    buf = io.StringIO()
+    argv0, sys.argv = sys.argv, [str(path), *argv]
+    code = None
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    finally:
+        wall = time.perf_counter() - t0
+        sys.argv = argv0
+        for line in buf.getvalue().splitlines():
+            print(f"[examples] {name} | {line}")
+    print(f"[examples] {name}: wall s={wall}")
+    check(code in (0, None), f"examples/torch_{name}.py exited with {code}")
+    return wall, buf.getvalue()
+
+
+class TrainWatch:
+    """While the block runs, the step `launch.train.compile_train_step`
+    returns is wrapped: each call's loss and its batch's token count are
+    kept, the first call (the warm-up step and the capture on the card) is
+    timed on the host clock, the second (a replay) runs under
+    torch.profiler (its device busy ms), and calls 3 to `steps` (replays)
+    run in one NVML window of `meter` (`begin` before call 3, `end` after
+    the last): their seconds and joules."""
+
+    def __init__(self, torch, train_mod, meter, steps):
+        self.torch, self.mod, self.meter, self.steps = torch, train_mod, meter, steps
+        self.losses, self.first_s, self.busy_ms, self.graph = [], None, None, None
+        self.window, self.tokens = None, []
+
+    def _compile(self, step_fn, **kw):
+        from torch.profiler import ProfilerActivity, profile
+        step = self.orig(step_fn, **kw)
+        sync = self.torch.cuda.synchronize
+
+        def call(*args):
+            n = len(self.losses) + 1
+            if n == 1:
+                sync()
+                t0 = time.perf_counter()
+            elif n == 2:
+                sync()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.start()
+            elif n == 3:
+                self.window = self.meter.begin()
+            out = step(*args)
+            self.losses.append(float(out[0]))
+            self.tokens.append(args[2]["tokens"].numel())
+            if n == 1:
+                self.first_s = time.perf_counter() - t0
+            elif n == 2:
+                sync()
+                prof.stop()
+                self.busy_ms = _train_breakdown(prof, "examples train_small replay",
+                                                ranges=False)
+            if n == self.steps:
+                self.window = self.meter.end(self.window)
+                self.graph = (step.warmup_s, step.capture_s, step.pool_bytes() / 2**30,
+                              len(step.steps))
+            return out
+        return call
+
+    def __enter__(self):
+        self.orig = self.mod.compile_train_step
+        self.mod.compile_train_step = self._compile
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.compile_train_step = self.orig
+
+
+def start_quickstart():
+    """`PYTHONPATH=src python examples/torch_quickstart.py` as a user runs
+    it, in a child process.  Started before phase 11, whose steps keep the
+    card busy and the host mostly idle, so the child's interpreter start
+    (~11-17 s on the card's host) overlaps it; phase 12 collects it."""
+    return subprocess.Popen([sys.executable, "examples/torch_quickstart.py"], cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH="src"), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def run_examples(torch, kda, serve_mod, counter, child) -> int:
+    """Phase 12: the five `examples/torch_*.py`, each run in this process
+    as a user runs it: the three host examples (their text is held to the
+    reference's by the CPU tests; here `torch_quickstart.py` also runs as
+    `child`, `start_quickstart`'s process: rc 0 and the same text),
+    `torch_serve_endtoend.py` on the card (the
+    reduced llama2 pair characterized to τ ≤ 64, fitted on NVML joules,
+    routed, served; B1's launches equal to layers x max_new x repeats over
+    its served batches; the served joules, each batch the mean of its
+    repeats inside one window, above their error bound) and
+    `torch_train_small.py` at 768 x 12 for 200 graphed
+    steps (loss falling, its replays' tokens/s and NVML J a step).
+    Returns B1's launches over the serving example."""
+    from repro_torch.energy.meter import NvmlMeter
+    from repro_torch.launch import train as train_mod
+    from repro_torch.serving import InferenceEngine
+    walls, texts = {}, {}
+    for name in HOST_EXAMPLES:
+        walls[name], texts[name] = run_example(name)
+    t0 = time.perf_counter()
+    out, err = child.communicate(timeout=600)
+    print(f"[examples] PYTHONPATH=src {Path(sys.executable).name} "
+          f"examples/torch_quickstart.py: rc {child.returncode}, waited s="
+          f"{time.perf_counter() - t0} after the in-process runs, its stdout "
+          f"{'equal to' if out == texts['quickstart'] else 'DIFFERENT from'} the in-process "
+          f"run's")
+    check(child.returncode == 0, f"torch_quickstart.py as a child: rc {child.returncode}: "
+          f"{err[-2000:]}")
+    check(out == texts["quickstart"], "torch_quickstart.py printed other text as a child")
+
+    captured = {}
+    orig_serve = serve_mod.serve
+
+    def serve(*args, **kw):
+        captured["out"] = orig_serve(*args, **kw)
+        return captured["out"]
+
+    serve_mod.serve = serve
+    idle_w = idle_watts()
+    try:
+        with EngineCalls(InferenceEngine, {"B1": kda}) as calls:
+            kda.launches = 0
+            whole = NvmlMeter("cuda")
+            (walls["serve_endtoend"], text), _, whole_j = whole.measure(
+                lambda: run_example("serve_endtoend"))
+            launches = kda.launches
+    finally:
+        serve_mod.serve = orig_serve
+    calls.report("examples")
+    out = captured["out"]
+    for prof in out["profiles"]:
+        trials = out["trials"][prof.name]
+        watts = [t.energy_j / t.runtime_s for t in trials]
+        print(f"[examples] serve_endtoend {prof.name}: Eq. 6 energy R2 on NVML_J="
+              f"{prof.energy.r_squared}, runtime R2={prof.runtime.r_squared} ({len(trials)} "
+              f"trials); trial power W min {min(watts):.1f} median "
+              f"{statistics.median(watts):.1f} max {max(watts):.1f}")
+        check(math.isfinite(prof.energy.r_squared) and math.isfinite(prof.runtime.r_squared),
+              f"{prof.name}: fit is not finite")
+    # a served batch of these widths lasts milliseconds: it is repeated
+    # inside one window of at least TRIAL_WINDOW_S and reports the mean, so
+    # its error is the window's bound over its repeats
+    served_j = sum(t["energy_j"] for t in out["totals"].values())
+    served_s = sum(t["runtime_s"] for t in out["totals"].values())
+    n_batches = sum(t["batches"] for t in out["totals"].values())
+    n_queries = sum(t["queries"] for t in out["totals"].values())
+    repeats = [r for t in out["totals"].values() for r in t["repeats"]]
+    err_j = sum(window_error_j(counter, idle_w) / r for r in repeats)
+    total = re.search(r"^TOTAL measured energy: (-?[0-9.]+) J", text, re.M)
+    print(f"[examples] serve_endtoend: served NVML J={served_j} in {served_s} s over "
+          f"{n_queries} queries in {n_batches} batches, each the mean of its window's "
+          f"repeats {repeats} (error bound of that sum {err_j} J); NVML J over the whole "
+          f"example={whole_j} (window {whole.last['window_j']} J)")
+    check(total is not None and total[1] == f"{served_j:.1f}",
+          f"torch_serve_endtoend.py's TOTAL line differs from its served joules {served_j}")
+    check(served_j > err_j, f"served joules {served_j} within their error bound {err_j} of 0")
+    check(n_queries == 16, f"torch_serve_endtoend.py served {n_queries} of its 16 queries")
+    expected = expected_decode_launches(serve_mod, out)
+    print(f"[examples] serve_endtoend: B1 launches={launches} expected={expected} (layers x "
+          f"max_new x repeats over batches)")
+    check(expected > 0 and launches == expected,
+          f"B1 launched {launches} times in torch_serve_endtoend.py, expected {expected}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with TrainWatch(torch, train_mod, NvmlMeter("cuda"), EXAMPLE_TRAIN_STEPS) as watch:
+        walls["train_small"], text = run_example("train_small", EXAMPLE_TRAIN_ARGV)
+    losses = watch.losses
+    n_params = re.search(r"params=([0-9.]+)M", text)
+    replay_s, replay_j = watch.window
+    replays = EXAMPLE_TRAIN_STEPS - 2
+    wall_ms = replay_s * 1e3 / replays
+    idle = (f"idle share {1 - watch.busy_ms / wall_ms}" if watch.busy_ms else
+            "idle share not measured (the profiler saw no device time)")
+    print(f"[examples] train_small {' '.join(EXAMPLE_TRAIN_ARGV)}: {n_params[1]} M parameters; "
+          f"loss {losses[0]} -> {losses[-1]} over {len(losses)} steps; step 1 (warm-up, "
+          f"capture) s={watch.first_s} (warm-up s={watch.graph[0]}, capture s="
+          f"{watch.graph[1]}, pool GiB={watch.graph[2]}, {watch.graph[3]} graph); step 2 (a "
+          f"replay, profiled): device busy ms={watch.busy_ms}; steps 3-{EXAMPLE_TRAIN_STEPS} "
+          f"(replays, the host's batches and loss reads included): {wall_ms} ms a step, {idle}, "
+          f"graphed tokens/s={sum(watch.tokens[2:]) / replay_s}, NVML J a step="
+          f"{replay_j / replays}")
+    check(len(losses) == EXAMPLE_TRAIN_STEPS and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"train_small's losses: {losses[0]} -> {losses[-1]}")
+    check(watch.graph[3] == 1, f"train_small captured {watch.graph[3]} graphs, not 1")
+    print(f"[examples] walls s: {walls}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the sharding layer on the card, and the dry run against it
 # ---------------------------------------------------------------------------
 
 # (a) the sharded runs: qwen3-1.7b trained as phase 11 (a) trains it, and
@@ -3600,7 +3849,7 @@ FLOPS_RTOL = 1e-6           # traced FLOPs against FlopCounterMode on the card
 
 
 def start_children() -> dict:
-    """Phase 12's host-only work, started once the kernels are timed (so
+    """Phase 13's host-only work, started once the kernels are timed (so
     their host times are taken on a quiet host) and joined at the end:
     (d) the dry-run CLI over DRYRUN_ARCHS x the four shapes on the pod
     mesh (a fake group of 256 ranks), and (b)'s traces of (a)'s two steps
@@ -3895,7 +4144,7 @@ def shard_decode(torch, kda, mesh) -> dict:
 
 
 def run_sharded(torch, kda, shapes) -> dict:
-    """Phase 12 (a)-(c) on a one-rank NCCL group.  Returns (b)'s real
+    """Phase 13 (a)-(c) on a one-rank NCCL group.  Returns (b)'s real
     counts."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_test_mesh
@@ -4046,11 +4295,21 @@ def run_phases(torch, kids, kind, count, smi) -> int:
     run_cluster(torch, kda, serve_mod, card_profiles)
     print(f"[phase] cluster (fig4, bench_cluster, card-fitted profiles, online router) "
           f"s={time.perf_counter() - t0}")
-    t0 = time.perf_counter()
-    train_scans = run_train(torch, {"B1": kda, "B2": kcb, "B3": kss, "B4": krg})
-    print(f"[phase] training (qwen3-1.7b, granite-moe-3b-a800m, resume, reduced, CLI, "
-          f"mamba2-130m, recurrentgemma-9b) "
-          f"s={time.perf_counter() - t0}")
+    quickstart = start_quickstart()
+    try:
+        t0 = time.perf_counter()
+        train_scans = run_train(torch, {"B1": kda, "B2": kcb, "B3": kss, "B4": krg})
+        print(f"[phase] training (qwen3-1.7b, granite-moe-3b-a800m, resume, reduced, CLI, "
+              f"mamba2-130m, recurrentgemma-9b) "
+              f"s={time.perf_counter() - t0}")
+        t0 = time.perf_counter()
+        example_launches = run_examples(torch, kda, serve_mod, counter, quickstart)
+        print(f"[phase] examples (quickstart, zeta_sweep, cluster_sim, serve_endtoend, "
+              f"train_small) s={time.perf_counter() - t0}")
+    finally:
+        if quickstart.poll() is None:
+            quickstart.kill()
+            quickstart.wait()
     t0 = time.perf_counter()
     real = run_sharded(torch, kda, shapes)
     join_children(kids, real, serve_walls)
@@ -4083,6 +4342,9 @@ def run_phases(torch, kids, kind, count, smi) -> int:
         entry("decode_attention (B1), vlm path (internvl2-2b)", "decode_attention.cu", b1,
               ev_launches["internvl2-2b"],
               max(errs["internvl2 serve"], errs["internvl2 serve fp8"]), "internvl2 serve"),
+        entry("decode_attention (B1), examples path (torch_serve_endtoend.py: "
+              "llama2-7b-reduced, llama2-70b-reduced, f32)", "decode_attention.cu", b1,
+              example_launches, errs["reduced serve"], "reduced serve"),
         entry("pass_costs (B2, analytic pass-cost surface) at simulate_batch's operands "
               "(prefill: one array as new tokens and context, a 0-d batch)", "cost_batch.cu",
               "src/repro/kernels/cost_batch.py:347", analytic_launches,

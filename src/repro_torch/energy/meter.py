@@ -222,10 +222,24 @@ class NvmlMeter:
         return e_b, t_b
 
     def measure(self, fn):
+        window = self.begin()
+        out = fn()
+        dt, joules = self.end(window)
+        return out, dt, joules
+
+    def begin(self) -> tuple:
+        """Open a window as `measure` does before calling its `fn`, for
+        work that is not one call (a training loop's steps after its
+        first); `end` closes it."""
         torch.cuda.synchronize(self.device)
         e0, t0 = self._open()
-        start = time.perf_counter()
-        out = fn()
+        return e0, t0, time.perf_counter()
+
+    def end(self, window: tuple) -> tuple[float, float]:
+        """Close a window `begin` opened, as `measure` closes its own:
+        the seconds from `begin` to the end of the device's work, and the
+        joules net of the idle head and tail."""
+        e0, t0, start = window
         torch.cuda.synchronize(self.device)
         end = time.perf_counter()
         e1, t1 = self.next_step(self.next_step()[0])
@@ -237,4 +251,4 @@ class NvmlMeter:
         self.last = {"window_j": window_j, "idle_s": idle_s, "opened": t0, "closed": t1}
         self.total_s += dt
         self.total_j += joules
-        return out, dt, joules
+        return dt, joules

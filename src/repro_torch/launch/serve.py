@@ -17,7 +17,8 @@ Port of `repro.launch.serve`:
 3. Route an Alpaca-like workload with the offline scheduler at the given
    zeta and serve every batch through the real engines (KV cache ON — the
    production path, whose decode attention is kernel B1), reporting
-   measured energy/runtime per model.
+   measured energy/runtime per model (on CUDA a short batch repeated
+   inside its window, as a trial is).
 
 `serve()` takes the token-only families: dense (llama2, mistral), moe
 (mixtral-8x7b, granite-moe-3b-a800m: B1 in every decode step;
@@ -62,10 +63,10 @@ from repro_torch.serving.requests import Request
 SERVE_WORKLOAD = dict(max_in=48, max_out=32, in_log_mean=2.8, out_log_mean=2.5)
 SERVE_BUCKET = 16
 WARMUP_SEED = 1             # the warm-up's tokens; the campaign's rng is seeded 0
-# A trial's NVML window lasts at least this long (the engine repeats a
-# shorter trial inside it): the meter's error, ~2 J a window on an H100
-# (the idle power's error over up to three counter steps of ~100 ms), is
-# then under 5 % of a trial's joules down to ~110 W.
+# A trial's or a served batch's NVML window lasts at least this long (the
+# engine repeats a shorter call inside it): the meter's error, ~2 J a
+# window on an H100 (the idle power's error over up to three counter steps
+# of ~100 ms), is then under 5 % of a trial's joules down to ~110 W.
 TRIAL_WINDOW_S = 0.4
 
 
@@ -158,7 +159,10 @@ def serve(archs: list[str], *, n_queries: int, zeta: float,
           batch_size: int = 4, char_max_tokens: int = 64,
           device: str | torch.device = "cuda") -> dict:
     """Characterize (τin, τout up to `char_max_tokens`), route and serve.
-    Returns {"plan", "totals", "profiles", "trials"} (trials per arch)."""
+    On CUDA a served batch, like a trial, is repeated inside one NVML
+    window of at least `TRIAL_WINDOW_S` and reports one call's mean.
+    Returns {"plan", "totals", "profiles", "trials"} (trials per arch;
+    each model's totals hold its batches' `repeats`)."""
     trials = {a: characterize(a, max_tokens=char_max_tokens, device=device) for a in archs}
     profiles = [fit_and_report(a, trials[a]) for a in archs]
     router = EnergyAwareRouter(profiles, zeta=zeta)
@@ -169,7 +173,8 @@ def serve(archs: list[str], *, n_queries: int, zeta: float,
             for i, q in enumerate(queries)]
     plan = router.route(reqs)
 
-    engines = {a: build_engine(a, kv_cache=True, device=device) for a in archs}
+    engines = {a: build_engine(a, kv_cache=True, min_window_s=TRIAL_WINDOW_S, device=device)
+               for a in archs}
     totals: dict = {}
     for arch, rs in plan.per_model.items():
         if not rs:
@@ -177,6 +182,7 @@ def serve(archs: list[str], *, n_queries: int, zeta: float,
         eng = engines[arch]
         e_j = t_s = 0.0
         n_tok = n_batches = 0
+        repeats = []
         qs = [(r.tau_in, r.max_new_tokens) for r in rs]
         for b in token_batches(qs, batch_size, eng.cfg.vocab_size):
             max_new = int(b["tau_out"].max())
@@ -185,8 +191,9 @@ def serve(archs: list[str], *, n_queries: int, zeta: float,
             t_s += stats.runtime_s
             n_tok += int(b["lengths"].sum()) + max_new * batch_size
             n_batches += 1
-        totals[arch] = {"queries": len(rs), "energy_j": e_j,
-                        "runtime_s": t_s, "tokens": n_tok, "batches": n_batches}
+            repeats.append(stats.repeats)
+        totals[arch] = {"queries": len(rs), "energy_j": e_j, "runtime_s": t_s,
+                        "tokens": n_tok, "batches": n_batches, "repeats": repeats}
         print(f"{arch}: {len(rs)} queries, {e_j:.1f} J, {t_s:.1f}s measured")
     return {"plan": plan, "totals": totals, "profiles": profiles, "trials": trials}
 

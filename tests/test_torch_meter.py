@@ -252,6 +252,36 @@ class TestNvmlMeter:
         assert meter.idle_w == pytest.approx(60.0, rel=5e-3)
         assert j == pytest.approx(400.0 * s, abs=0.02)
 
+    def test_begin_and_end_span_several_calls_as_measure_spans_one(self, card, clock):
+        """A window opened by `begin` and closed by `end` around several
+        busy stretches with host gaps between them (a training loop's
+        steps) reads what one `measure` over the same stretches reads: the
+        seconds from `begin` to the end of the work, the work's energy and
+        the gaps' at idle power, on the counter's steps."""
+        counter, work, busy = busy_counter(clock, LateCounter)
+        meter = NvmlMeter("cuda", lib=StubNvml(counter.mj))
+        work(0.2)                   # device work before the window, as a capture step
+
+        def steps():
+            for d in (0.03, 0.05, 0.04):
+                work(d)
+                clock.now += 0.007  # the host between steps
+
+        window = meter.begin()
+        start = clock.now
+        steps()
+        stop = clock.now
+        s, j = meter.end(window)
+        assert s == pytest.approx(stop - start, abs=1e-4)
+        assert meter.last["opened"] >= busy[0][1] + 0.05
+        assert meter.idle_w == pytest.approx(60.0, rel=5e-3)
+        assert j == pytest.approx(400.0 * 0.12 + 60.0 * (s - 0.12), abs=0.02)
+        assert meter.total_s == pytest.approx(s) and meter.total_j == pytest.approx(j)
+        work(0.2)
+        meter.invalidate()
+        _, s2, j2 = meter.measure(steps)
+        assert s2 == pytest.approx(s, abs=1e-3) and j2 == pytest.approx(j, abs=0.05)
+
     def test_raises_on_a_nonzero_return_code(self, card, clock):
         for name in ("nvmlInit_v2", "nvmlDeviceGetCount_v2", "nvmlDeviceGetUUID"):
             with pytest.raises(NvmlError, match=name):

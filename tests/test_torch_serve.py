@@ -120,6 +120,48 @@ class TestServe:
         assert all(np.isfinite(p.energy.coeffs + p.runtime.coeffs).all()
                    for p in out["profiles"])
 
+    def test_served_batches_repeat_inside_their_window(self, monkeypatch):
+        """With a per-call meter (NVML's on the card) each served batch is
+        repeated inside one window of at least TRIAL_WINDOW_S, as a trial
+        is, and the totals keep each batch's repeats."""
+        from repro_torch.serving import InferenceEngine
+
+        class PerCallMeter:
+            per_call, power_w = True, 100.0
+
+            def invalidate(self):
+                pass
+
+            def measure(self, fn):
+                out = fn()
+                return out, 0.01, 1.0
+
+        built, kv_on_calls = [], []
+        build, cached = port_serve.build_engine, InferenceEngine._generate_cached
+
+        def recording_build(arch, **kw):
+            built.append((kw["kv_cache"], kw.get("min_window_s", 0.0)))
+            return build(arch, **kw)
+
+        def counting_cached(eng, *args):
+            kv_on_calls.append(eng.cfg.name)
+            return cached(eng, *args)
+
+        monkeypatch.setattr(port_serve, "WallClockMeter", PerCallMeter)
+        monkeypatch.setattr(port_serve, "TRIAL_WINDOW_S", 0.1)
+        monkeypatch.setattr(port_serve, "build_engine", recording_build)
+        monkeypatch.setattr(InferenceEngine, "_generate_cached", counting_cached)
+        out = port_serve.serve(["llama2-7b-reduced", "llama2-70b-reduced"], n_queries=8,
+                               zeta=0.5, char_max_tokens=16, device="cpu")
+        assert {w for kv, w in built} == {0.1}
+        assert sum(kv for kv, _ in built) == 2
+        repeats = [r for t in out["totals"].values() for r in t["repeats"]]
+        assert [len(t["repeats"]) for t in out["totals"].values()] == \
+            [t["batches"] for t in out["totals"].values()]
+        assert min(repeats) >= 1 and len(kv_on_calls) == sum(repeats) > len(repeats)
+        for arch, t in out["totals"].items():
+            assert t["energy_j"] == pytest.approx(sum(1.0 / r for r in t["repeats"]))
+
     def test_entry_points_default_to_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -135,8 +177,11 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 sys.path.insert(0, {root!r})
 import chip_smoke
+import runpy
+for name in ("quickstart", "zeta_sweep", "cluster_sim", "serve_endtoend", "train_small"):
+    runpy.run_path({root!r} + f"/examples/torch_{{name}}.py", run_name="probe")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))
 print("loaded", len([m for m in sys.modules if m.startswith("repro_torch")]), bad)
 assert not bad, bad
 """
@@ -198,6 +243,8 @@ print("ok")
 
 class TestIsolation:
     def test_port_and_chip_smoke_load_no_jax_or_repro(self):
+        """Every port module, `chip_smoke.py` and the five port examples
+        (their imports only: `run_name` is not `__main__`)."""
         res = subprocess.run([sys.executable, "-c", PROBE.format(root=str(ROOT))],
                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                              capture_output=True, text=True, timeout=120)
